@@ -48,6 +48,12 @@ from repro.models import apply_client_model, init_client_model
 from repro.optim import adam
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (the PyTorch port's kernels); "
+        "skips without one")
+
+
 @pytest.fixture(scope="session")
 def tiny_fed():
     """Small, fast federation fixture shared across protocol tests:

@@ -1,0 +1,116 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the
+card, and the wrappers' input checks there. Every test needs a CUDA
+device and skips without one (the decision is made in a fixture).
+
+This file imports neither JAX nor the JAX package, so it also runs on a
+machine that has only PyTorch; `tests/conftest.py` imports JAX, so run
+it there without the conftest:
+
+    PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
+
+Tolerances as in `chip_smoke.py`: LSH sums within
+1e-5 * (|plain| + ||x_row||_2), code bits equal off |sum| <= 1e-3;
+selection ids and weights equal; exchange l_ij and target rtol 1e-5
+(atol 1e-5 for target), masks equal.
+"""
+import pytest
+import torch
+
+from repro_torch.kernels import exchange, lsh_projection, ref, selection
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.device import resolve_device
+    return resolve_device("cuda")
+
+
+def _gen(seed):
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    return g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,p", [(10, 8192), (37, 4096)])
+def test_lsh_kernel_matches_plain(cuda, m, p):
+    x = torch.randn((m, p), generator=_gen(m), device=cuda) * 0.05
+    k = lsh_projection.lsh_project_sums_batched(x, 3, bits=256)
+    pl = ref.lsh_project_sums_batched_ref(x, 3, bits=256)
+    err = (k - pl).abs()
+    assert bool((err <= 1e-5 * (pl.abs() + x.norm(dim=1, keepdim=True)))
+                .all()), err.max()
+    off = pl.abs() > 1e-3
+    assert torch.equal((k > 0)[off], (pl > 0)[off])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ties", [False, True])
+def test_selection_kernel_matches_plain(cuda, ties):
+    g = _gen(2)
+    codes = torch.randint(-2 ** 31, 2 ** 31 - 1, (40, 8), generator=g,
+                          device=cuda, dtype=torch.int64).to(torch.int32)
+    codes[5:9] = codes[4]
+    scores = (torch.zeros(40, device=cuda) if ties else
+              torch.rand(40, generator=g, device=cuda).round(decimals=1))
+    lut = ref.selection_lut(8, 256, 1.0, device=cuda)
+    for flags in ({}, {"use_lsh": False}, {"use_rank": False}):
+        ki, kw = selection.fused_select(codes, scores, bits=256, gamma=1.0,
+                                        num_neighbors=9, **flags)
+        pi, pw = ref.fused_select_ref(codes, scores, lut, num_neighbors=9,
+                                      **flags)
+        assert torch.equal(ki, pi) and torch.equal(kw, pw), flags
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lsh_verification", [True, False])
+def test_exchange_kernel_matches_plain(cuda, lsh_verification):
+    g = _gen(4)
+    own = torch.randn((10, 64, 10), generator=g, device=cuda) * 3
+    nb = torch.randn((10, 9, 64, 10), generator=g, device=cuda) * 3
+    nb[:, 3] = nb[:, 1]                     # an exact KL tie
+    y = torch.randint(0, 10, (10, 64), generator=g, device=cuda)
+    sel = torch.rand((10, 9), generator=g, device=cuda) < 0.8
+    kl, kv, kt, kh = exchange.fused_exchange(
+        own, nb, y, sel, lsh_verification=lsh_verification)
+    pl, pv, pt, ph = ref.all_in_one_exchange_ref(
+        own, nb, y, sel, lsh_verification=lsh_verification)
+    torch.testing.assert_close(kl, pl, rtol=1e-5, atol=0.0)
+    torch.testing.assert_close(kt, pt, rtol=1e-5, atol=1e-5)
+    assert torch.equal(kv, pv) and torch.equal(kh, ph)
+
+
+@pytest.mark.cuda
+def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    with pytest.raises(ValueError, match="P %"):
+        lsh_projection.lsh_project_sums_batched(
+            torch.zeros((2, 1000), device=cuda), 0)
+    with pytest.raises(ValueError, match="int32"):
+        selection.fused_select(torch.zeros((4, 2), device=cuda),
+                               torch.zeros(4, device=cuda), bits=64,
+                               gamma=1.0, num_neighbors=2)
+    with pytest.raises(ValueError, match="shape"):
+        exchange.fused_exchange(torch.zeros((2, 3, 4), device=cuda),
+                                torch.zeros((2, 1, 3, 5), device=cuda),
+                                torch.zeros((2, 3), dtype=torch.int32,
+                                            device=cuda),
+                                torch.ones((2, 1), dtype=torch.bool,
+                                           device=cuda))
+
+
+@pytest.mark.cuda
+def test_kernel_backed_round_matches_plain_round(cuda):
+    """Two aecg rounds through the kernels and through the plain
+    versions on the card: same selections and masks, close metrics."""
+    from repro_torch.launch.fed import run_federation
+    _, hk = run_federation("aecg", rounds=2, num_clients=6, backend="kernel",
+                           device=cuda, log=None)
+    _, ho = run_federation("aecg", rounds=2, num_clients=6, backend="oracle",
+                           device=cuda, log=None)
+    for a, b in zip(hk, ho):
+        assert a["neighbor_ids"] == b["neighbor_ids"]
+        assert a["valid_mask"] == b["valid_mask"]
+        assert abs(a["mean_loss"] - b["mean_loss"]) <= 1e-4 * abs(
+            b["mean_loss"])
