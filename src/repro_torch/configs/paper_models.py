@@ -98,8 +98,9 @@ class FedConfig:
     ann_probes: int = 8
     # kernel tiling regime, resolved by repro_torch.core.backends
     # .resolve_tiling: "oneshot" is the one-block-per-row kernels,
-    # "tiled" (the streaming kernels) is not ported yet, "auto" resolves
-    # to "oneshot".
+    # "tiled" the column-tiled selection and streamed exchange, "auto"
+    # oneshot while the one-shot kernel's shared memory fits one H100
+    # block, tiled beyond.
     selection_tiling: str = "auto"
     exchange_tiling: str = "auto"
     # reference-set regime (DESIGN.md §7): "personal" exchanges logits

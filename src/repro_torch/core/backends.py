@@ -7,14 +7,28 @@ not carry over). `FedConfig`'s strings keep their meaning:
   "oracle" -> the kernel's plain PyTorch version (`kernels/ref.py`),
   "auto"   -> kernel on a CUDA device, oracle on the CPU.
 
-Tiling: "oneshot" is the kernels this package has; "auto" resolves to
-it; "tiled" (the streaming kernels) is not ported yet and raises. The
-rejection message keeps the JAX package's shape: field, value, accepted
-set.
+Tiling:
+
+  "oneshot" -> the one-block-per-row selection and one-block-per-client
+               exchange, which hold a whole row / client in shared memory,
+  "tiled"   -> the column-tiled selection and the streamed exchange,
+               whose shared memory does not grow with M or C,
+  "auto"    -> oneshot while the one-shot kernel's shared memory
+               (`selection_oneshot_smem_bytes`,
+               `exchange_oneshot_smem_bytes`) fits one H100 block's
+               `MAX_SHARED_BYTES`, tiled beyond it.
+
+The budget is the H100's on every device, so a CPU run and a card run
+resolve the same regime at the same shapes (the streamed exchange agrees
+with the one-shot exchange only within tolerance). Rejection messages
+keep the JAX package's shape: field, value, accepted set.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels import exchange, selection
+from repro_torch.kernels.build import MAX_SHARED_BYTES
 
 BACKENDS = ("auto", "kernel", "oracle")
 TILINGS = ("auto", "oneshot", "tiled")
@@ -41,12 +55,19 @@ def resolve(backend: str, device) -> str:
     return backend
 
 
-def resolve_tiling(tiling: str) -> str:
-    """Validate `tiling`: "oneshot" is the only regime ported so far."""
-    if tiling not in TILINGS:
+# the one-shot kernels' shared memory per block, from their wrappers
+selection_oneshot_smem_bytes = selection.oneshot_smem_bytes   # (m)
+exchange_oneshot_smem_bytes = exchange.oneshot_smem_bytes     # (n, r)
+
+
+def resolve_tiling(tiling: str, est_oneshot_bytes: int, *,
+                   budget_bytes: int = None) -> str:
+    """Validate and resolve a tiling string to "oneshot" or "tiled".
+    "auto" compares the one-shot kernel's shared-memory estimate with
+    the budget (default MAX_SHARED_BYTES, one H100 block's)."""
+    if tiling == "auto":
+        budget = MAX_SHARED_BYTES if budget_bytes is None else budget_bytes
+        return "oneshot" if est_oneshot_bytes <= budget else "tiled"
+    if tiling not in ("oneshot", "tiled"):
         raise _reject("tiling", tiling, TILINGS)
-    if tiling == "tiled":
-        raise NotImplementedError(
-            "tiling 'tiled' (the streaming selection and exchange kernels) "
-            "is not ported yet")
-    return "oneshot"
+    return tiling

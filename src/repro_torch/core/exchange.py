@@ -4,8 +4,11 @@ distillation target). Counterpart of `repro/core/exchange.py`.
 One exchange of reference-set logits (1) transfers knowledge (the
 distillation target), (2) evaluates model quality (the per-neighbour CE
 losses behind the Eq. 7 rankings) and (3) verifies similarity (§3.5's
-output-KL upper-half filter), through the fused exchange kernel
-("kernel") or its plain version ("oracle").
+output-KL upper-half filter), through the fused exchange kernels
+("kernel") or their plain versions ("oracle"), one-shot or streamed as
+`backends.resolve_tiling` decides from the one-shot kernel's shared
+memory (the streamed path agrees with the one-shot one within f32
+rounding; the mask flips only on exact KL ties).
 """
 from __future__ import annotations
 
@@ -41,9 +44,16 @@ def all_in_one_exchange(own_logits, neighbor_logits, y_ref, sel_mask, fed,
             torch.zeros((m, 0), dtype=torch.bool, device=dev),
             torch.zeros((m, r, c), device=dev),
             torch.zeros((m,), dtype=torch.bool, device=dev))
-    backends.resolve_tiling(tiling or fed.exchange_tiling)
+    r = neighbor_logits.shape[2]
     resolved = backends.resolve(backend or fed.exchange_backend, dev)
-    fn = (exchange.fused_exchange if resolved == "kernel"
-          else ref.all_in_one_exchange_ref)
+    tiled = backends.resolve_tiling(
+        tiling or fed.exchange_tiling,
+        backends.exchange_oneshot_smem_bytes(n, r)) == "tiled"
+    if resolved == "kernel":
+        fn = (exchange.fused_exchange_streamed if tiled
+              else exchange.fused_exchange)
+    else:
+        fn = (ref.streamed_exchange_ref if tiled
+              else ref.all_in_one_exchange_ref)
     return ExchangeResult(*fn(own_logits, neighbor_logits, y_ref, sel_mask,
                               lsh_verification=fed.lsh_verification))

@@ -3,7 +3,9 @@ Counterpart of `repro/core/neighbor.py`.
 
 `select_partners` is the protocol's entry point: published LSH codes +
 crowd-sourced ranking scores -> per-client top-N partner ids, through the
-fused selection kernel ("kernel") or its plain version ("oracle").
+fused selection kernels ("kernel") or their plain versions ("oracle"),
+one-shot or column-tiled as `backends.resolve_tiling` decides from the
+one-shot kernel's shared memory (the tiled kernel is bit-equal to it).
 Table-3 ablations:
   use_lsh=False  -> w_ij = s_j            ("w/o LSH")
   use_rank=False -> w_ij = exp(-gamma d)  ("w/o Rank")
@@ -42,15 +44,19 @@ def select_partners(codes: torch.Tensor, scores: torch.Tensor, fed, *,
         w = torch.where(torch.eye(m, dtype=torch.bool, device=codes.device),
                         torch.tensor(-torch.inf, device=codes.device), w)
         return select_neighbors(w, n)
-    backends.resolve_tiling(tiling or fed.selection_tiling)
     resolved = backends.resolve(backend or fed.selection_backend,
                                 codes.device)
+    tiled = backends.resolve_tiling(
+        tiling or fed.selection_tiling,
+        backends.selection_oneshot_smem_bytes(m)) == "tiled"
     kw = dict(num_neighbors=n, use_lsh=fed.use_lsh, use_rank=fed.use_rank)
     if resolved == "kernel":
-        ids, top_w = selection.fused_select(
-            codes, scores, bits=fed.lsh_bits, gamma=fed.gamma, **kw)
+        fn = selection.fused_select_tiled if tiled else selection.fused_select
+        ids, top_w = fn(codes, scores, bits=fed.lsh_bits, gamma=fed.gamma,
+                        **kw)
     else:
         lut = ref.selection_lut(codes.shape[1], fed.lsh_bits, fed.gamma,
                                 device=codes.device)
-        ids, top_w = ref.fused_select_ref(codes, scores, lut, **kw)
+        fn = ref.fused_select_tiled_ref if tiled else ref.fused_select_ref
+        ids, top_w = fn(codes, scores, lut, **kw)
     return ids, torch.isfinite(top_w)

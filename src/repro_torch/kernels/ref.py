@@ -58,6 +58,23 @@ def hamming_all_pairs_ref(codes_a: torch.Tensor,
     return popcount_u32(x).sum(-1, dtype=torch.int32)
 
 
+def _eq8_weights(codes: torch.Tensor, scores: torch.Tensor,
+                 lut: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
+                 use_lsh: bool, use_rank: bool) -> torch.Tensor:
+    """Eq. 8 weights w_ij = s_j * lut[d_ij] (Table-3 switches) of the
+    `rows` x `cols` client ids, self at -inf."""
+    dev = codes.device
+    if use_rank:
+        w = scores.to(torch.float32)[cols][None, :].expand(len(rows), -1)
+    else:
+        w = torch.ones((len(rows), len(cols)), device=dev)
+    if use_lsh:
+        d = hamming_all_pairs_ref(codes[rows], codes[cols])
+        w = w * lut[d.to(torch.int64)]
+    return torch.where(rows[:, None] == cols[None, :],
+                       torch.tensor(-torch.inf, device=dev), w)
+
+
 def fused_select_ref(codes: torch.Tensor, scores: torch.Tensor,
                      lut: torch.Tensor, *, num_neighbors: int,
                      use_lsh: bool = True, use_rank: bool = True):
@@ -70,17 +87,43 @@ def fused_select_ref(codes: torch.Tensor, scores: torch.Tensor,
     and the order is decided by the tie-breaking alone."""
     m = codes.shape[0]
     nsel = min(num_neighbors, m - 1)
-    if use_rank:
-        w = scores.to(torch.float32)[None, :].expand(m, m)
-    else:
-        w = torch.ones((m, m), dtype=torch.float32, device=codes.device)
-    if use_lsh:
-        d = hamming_all_pairs_ref(codes, codes)
-        w = w * lut[d.to(torch.int64)]
-    eye = torch.eye(m, dtype=torch.bool, device=codes.device)
-    w = torch.where(eye, torch.tensor(-torch.inf, device=codes.device), w)
+    ids = torch.arange(m, device=codes.device)
+    w = _eq8_weights(codes, scores, lut, ids, ids, use_lsh, use_rank)
     top_w, top_i = torch.sort(w, dim=1, descending=True, stable=True)
     return top_i[:, :nsel].to(torch.int32), top_w[:, :nsel]
+
+
+def fused_select_tiled_ref(codes: torch.Tensor, scores: torch.Tensor,
+                           lut: torch.Tensor, *, num_neighbors: int,
+                           use_lsh: bool = True, use_rank: bool = True,
+                           block_m: int = 128, block_k: int = 512):
+    """`fused_select_ref`'s contract, walked as the column-tiled kernel
+    walks it: (block_m, block_k) weight tiles, each merged into a running
+    top-N per row. The running candidates go first in the merge; they
+    come from earlier tiles, so their ids are smaller, and the stable
+    descending sort keeps ascending-id ties across tiles. Bit-equal to
+    `fused_select_ref` (same elementwise weights, exact merge) while
+    holding O(block_m * block_k) weights, never the (M, M) matrix."""
+    m = codes.shape[0]
+    nsel = max(min(num_neighbors, m - 1), 0)
+    dev = codes.device
+    ids = torch.zeros((m, nsel), dtype=torch.int64, device=dev)
+    top_w = torch.zeros((m, nsel), dtype=torch.float32, device=dev)
+    for r0 in range(0, m if nsel else 0, block_m):
+        rows = torch.arange(r0, min(r0 + block_m, m), device=dev)
+        run_w = torch.empty((len(rows), 0), device=dev)
+        run_i = torch.empty((len(rows), 0), dtype=torch.int64, device=dev)
+        for c0 in range(0, m, block_k):
+            cols = torch.arange(c0, min(c0 + block_k, m), device=dev)
+            w = _eq8_weights(codes, scores, lut, rows, cols, use_lsh,
+                             use_rank)
+            cand_i = torch.cat([run_i, cols.expand(len(rows), -1)], dim=1)
+            run_w, order = torch.sort(torch.cat([run_w, w], dim=1), dim=1,
+                                      descending=True, stable=True)
+            run_w, order = run_w[:, :nsel], order[:, :nsel]
+            run_i = torch.gather(cand_i, 1, order)
+        ids[rows], top_w[rows] = run_i, run_w
+    return ids.to(torch.int32), top_w
 
 
 def upper_half_mask(kl_mean: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
@@ -123,4 +166,86 @@ def all_in_one_exchange_ref(own_logits: torch.Tensor,
     w = valid.to(torch.float32)
     denom = w.sum(-1).clamp(min=1.0)
     target = torch.einsum("mn,mnrc->mrc", w, nb) / denom[:, None, None]
+    return l_ij, valid, target, w.sum(-1) > 0
+
+
+def streamed_tiles(r: int, c: int, block_r: int = 8, block_c: int = 512):
+    """Clamp the (BR, BC) tile to the (8, 128)-padded problem so small
+    shapes run as a single tile; returns (br, pr, bc, pc). The port's
+    copy of `repro/kernels/exchange.py:streamed_tiles`."""
+    br = min(block_r, r + (-r) % 8)
+    bc = min(block_c, c + (-c) % 128)
+    return br, (-r) % br, bc, (-c) % bc
+
+
+def streamed_exchange_ref(own_logits: torch.Tensor,
+                          neighbor_logits: torch.Tensor,
+                          y_ref: torch.Tensor, sel_mask: torch.Tensor, *,
+                          lsh_verification: bool = True, block_r: int = 8,
+                          block_c: int = 512):
+    """Streaming twin of `all_in_one_exchange_ref` (the port's copy of
+    `repro/kernels/ref.py:streamed_exchange_ref`): walks (BR, BC) tiles
+    of R and C with the online max / sum-exp of each own and neighbour
+    row, the label-logit gather and the §3.5 KL cross term
+    b = sum_c exp(x_own - m_own) * (x_own - x_nb), so that
+    KL = b / a_own - lse_own + lse_nb, without a full-C temporary. Agrees
+    with `all_in_one_exchange_ref` within f32 tolerance (the online
+    softmax reorders the C reduction); the mask flips only on exact KL
+    ties."""
+    m, n, r, c = neighbor_logits.shape
+    dev = neighbor_logits.device
+    br, pr, bc, pc = streamed_tiles(r, c, block_r, block_c)
+    own_p = torch.nn.functional.pad(own_logits.to(torch.float32),
+                                    (0, pc, 0, pr))
+    nb_p = torch.nn.functional.pad(neighbor_logits.to(torch.float32),
+                                   (0, pc, 0, pr))
+    y_p = torch.nn.functional.pad(y_ref.to(torch.int32), (0, pr))
+    nr, nc = (r + pr) // br, (c + pc) // bc
+    ninf = torch.tensor(-torch.inf, device=dev)
+
+    l_acc = torch.zeros((m, n), device=dev)
+    kl_acc = torch.zeros((m, n), device=dev)
+    for ri in range(nr):
+        rs = slice(ri * br, (ri + 1) * br)
+        m_nb = torch.full((m, n, br), -torch.inf, device=dev)
+        a_nb = torch.zeros((m, n, br), device=dev)
+        g_nb = torch.zeros((m, n, br), device=dev)
+        b_x = torch.zeros((m, n, br), device=dev)
+        m_own = torch.full((m, br), -torch.inf, device=dev)
+        a_own = torch.zeros((m, br), device=dev)
+        y_t = y_p[:, rs]
+        for ci in range(nc):
+            cs = slice(ci * bc, (ci + 1) * bc)
+            xo, xn = own_p[:, rs, cs], nb_p[:, :, rs, cs]
+            col = ci * bc + torch.arange(bc, dtype=torch.int32, device=dev)
+            cvalid = col < c
+            xo_m = torch.where(cvalid, xo, ninf)
+            xn_m = torch.where(cvalid, xn, ninf)
+            mo_new = torch.maximum(m_own, xo_m.amax(-1))
+            co = torch.exp(m_own - mo_new)
+            po = torch.exp(xo_m - mo_new[..., None])
+            a_own = a_own * co + po.sum(-1)
+            mn_new = torch.maximum(m_nb, xn_m.amax(-1))
+            cn = torch.exp(m_nb - mn_new)
+            a_nb = a_nb * cn + torch.exp(xn_m - mn_new[..., None]).sum(-1)
+            b_x = (b_x * co[:, None]
+                   + (po[:, None] * (xo[:, None] - xn)).sum(-1))
+            match = col[None, None, :] == y_t[:, :, None]
+            g_nb = g_nb + torch.where(match[:, None], xn, 0.0).sum(-1)
+            m_own, m_nb = mo_new, mn_new
+        lse_nb = m_nb + torch.log(a_nb)
+        lse_own = m_own + torch.log(a_own)
+        rvalid = (ri * br + torch.arange(br, device=dev)) < r
+        l_acc = l_acc + torch.where(rvalid, lse_nb - g_nb, 0.0).sum(-1)
+        kl_r = b_x / a_own[:, None] - lse_own[:, None] + lse_nb
+        kl_acc = kl_acc + torch.where(rvalid, kl_r, 0.0).sum(-1)
+
+    l_ij = l_acc / float(r)
+    sel = sel_mask.to(torch.bool)
+    valid = upper_half_mask(kl_acc / float(r), sel) if lsh_verification \
+        else sel
+    w = valid.to(torch.float32)
+    denom = w.sum(-1).clamp(min=1.0)
+    target = (torch.einsum("mn,mnrc->mrc", w, nb_p)
+              / denom[:, None, None])[:, :r, :c]
     return l_ij, valid, target, w.sum(-1) > 0

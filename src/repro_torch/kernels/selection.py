@@ -1,4 +1,5 @@
-"""Fused peer selection (WPFed Eq. 6-8 + top-N): wrapper of the CUDA kernel.
+"""Fused peer selection (WPFed Eq. 6-8 + top-N): wrappers of the one-shot
+and the column-tiled CUDA kernels.
 
 Replaces the TPU kernel `repro/kernels/selection.py:fused_select`
 (`_select_kernel`). The kernel (`csrc/selection.cu`) runs one block per
@@ -7,9 +8,18 @@ wrapper's exp table (so they equal the plain version's bit for bit),
 self at -inf, then top-N by first-max knockout with ascending-id ties.
 Its bound on the H100 at the main path's M=10 is launch latency; it
 keeps each row's weights in shared memory so no (M, M) array is
-written. The wrapper takes the plain version (`ref.fused_select_ref`)
-for CPU tensors only; for a CUDA tensor it launches the kernel or
-raises.
+written. Past M = MAX_SHARED_BYTES / 5 = 46,489 clients that row no
+longer fits one block's shared memory.
+
+`fused_select_tiled` replaces the TPU kernel
+`repro/kernels/selection.py:fused_select_tiled` (`_select_tiled_kernel`)
+with `csrc/selection_tiled.cu`: one thread per row, column tiles of
+codes staged in shared memory, a running top-N per row; shared memory
+does not grow with M. Its bound is the 3*M*M*W integer operations.
+
+Each wrapper takes its plain version (`ref.fused_select_ref`,
+`ref.fused_select_tiled_ref`) for CPU tensors only; for a CUDA tensor it
+launches its kernel or raises.
 """
 from __future__ import annotations
 
@@ -27,18 +37,17 @@ KERNEL = CudaKernel(
      ctypes.c_void_p, ctypes.c_void_p])
 
 
-def fused_select(codes: torch.Tensor, scores: torch.Tensor, *, bits: int,
-                 gamma: float, num_neighbors: int, use_lsh: bool = True,
-                 use_rank: bool = True):
-    """codes (M, W) int32 (uint32 patterns), scores (M,) f32 ->
-    (ids (M, N) int32, top_w (M, N) f32), N = min(num_neighbors, M-1)."""
+def oneshot_smem_bytes(m: int) -> int:
+    """Shared memory of one `csrc/selection.cu` block: a weight and a
+    taken flag per column."""
+    return 5 * m
+
+
+def _launch(kernel: CudaKernel, codes: torch.Tensor, scores: torch.Tensor,
+            lut: torch.Tensor, nsel: int, use_lsh: bool, use_rank: bool):
+    """Launch a selection kernel on CUDA tensors after the checks both
+    kernels share; (ids (M, nsel) int32, top_w (M, nsel) f32)."""
     m, w = codes.shape
-    lut = ref.selection_lut(w, bits, gamma, device=codes.device)
-    nsel = min(num_neighbors, m - 1)
-    if codes.device.type == "cpu":
-        return ref.fused_select_ref(codes, scores, lut,
-                                    num_neighbors=num_neighbors,
-                                    use_lsh=use_lsh, use_rank=use_rank)
     if codes.device.type != "cuda":
         raise ValueError(f"unsupported device {codes.device}")
     if codes.dtype != torch.int32 or scores.dtype != torch.float32:
@@ -46,16 +55,62 @@ def fused_select(codes: torch.Tensor, scores: torch.Tensor, *, bits: int,
                          f"{codes.dtype} / {scores.dtype}")
     if scores.shape != (m,) or scores.device != codes.device:
         raise ValueError("scores must be (M,) on the codes' device")
-    if m * 5 > MAX_SHARED_BYTES:              # a weight and a flag per column
-        raise ValueError(f"M={m} exceeds the one-shot kernel's shared "
-                         "memory; the tiled selection is not ported yet")
     if nsel <= 0:
         return (torch.zeros((m, 0), dtype=torch.int32, device=codes.device),
                 torch.zeros((m, 0), dtype=torch.float32, device=codes.device))
     codes, scores = codes.contiguous(), scores.contiguous()
     ids = torch.empty((m, nsel), dtype=torch.int32, device=codes.device)
     top_w = torch.empty((m, nsel), dtype=torch.float32, device=codes.device)
-    KERNEL.launch(codes.device, codes.data_ptr(), scores.data_ptr(),
+    kernel.launch(codes.device, codes.data_ptr(), scores.data_ptr(),
                   lut.data_ptr(), m, w, nsel, int(use_lsh), int(use_rank),
                   ids.data_ptr(), top_w.data_ptr())
     return ids, top_w
+
+
+def fused_select(codes: torch.Tensor, scores: torch.Tensor, *, bits: int,
+                 gamma: float, num_neighbors: int, use_lsh: bool = True,
+                 use_rank: bool = True):
+    """codes (M, W) int32 (uint32 patterns), scores (M,) f32 ->
+    (ids (M, N) int32, top_w (M, N) f32), N = min(num_neighbors, M-1)."""
+    m, w = codes.shape
+    lut = ref.selection_lut(w, bits, gamma, device=codes.device)
+    if codes.device.type == "cpu":
+        return ref.fused_select_ref(codes, scores, lut,
+                                    num_neighbors=num_neighbors,
+                                    use_lsh=use_lsh, use_rank=use_rank)
+    if oneshot_smem_bytes(m) > MAX_SHARED_BYTES:
+        raise ValueError(f"M={m} exceeds the one-shot kernel's shared "
+                         "memory; select with tiling=\"tiled\" or \"auto\" "
+                         "(the column-tiled kernel)")
+    return _launch(KERNEL, codes, scores, lut, min(num_neighbors, m - 1),
+                   use_lsh, use_rank)
+
+
+TILED_KERNEL = CudaKernel(
+    "selection_tiled", "selection_tiled.cu", "fused_select_tiled",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+     ctypes.c_void_p, ctypes.c_void_p])
+TILED_MAX_NEIGHBORS = 128   # running top-N slots per row in shared memory
+TILED_MAX_WORDS = 32        # code words (1024 bits) per row
+
+
+def fused_select_tiled(codes: torch.Tensor, scores: torch.Tensor, *,
+                       bits: int, gamma: float, num_neighbors: int,
+                       use_lsh: bool = True, use_rank: bool = True):
+    """`fused_select`'s contract through the column-tiled kernel, for any
+    M: codes (M, W) int32, scores (M,) f32 -> (ids (M, N) int32,
+    top_w (M, N) f32), N = min(num_neighbors, M-1) <= TILED_MAX_NEIGHBORS.
+    Bit-equal to `fused_select` and to the plain versions."""
+    m, w = codes.shape
+    lut = ref.selection_lut(w, bits, gamma, device=codes.device)
+    if codes.device.type == "cpu":
+        return ref.fused_select_tiled_ref(codes, scores, lut,
+                                          num_neighbors=num_neighbors,
+                                          use_lsh=use_lsh, use_rank=use_rank)
+    nsel = min(num_neighbors, m - 1)
+    if nsel > TILED_MAX_NEIGHBORS or w > TILED_MAX_WORDS:
+        raise ValueError(f"N={nsel}, W={w}: the tiled selection kernel takes "
+                         f"N <= {TILED_MAX_NEIGHBORS} and codes of at most "
+                         f"{TILED_MAX_WORDS * 32} bits")
+    return _launch(TILED_KERNEL, codes, scores, lut, nsel, use_lsh, use_rank)

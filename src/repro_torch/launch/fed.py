@@ -4,6 +4,8 @@ Counterpart of `repro/launch/fed.py` (`run_federation` and its CLI).
     PYTHONPATH=src python -m repro_torch.launch.fed --dataset mnist --rounds 10
     PYTHONPATH=src python -m repro_torch.launch.fed --device cpu \
         --dataset aecg --clients 4 --rounds 2
+    PYTHONPATH=src python -m repro_torch.launch.fed --dataset mnist \
+        --rounds 2 --tiling tiled
 
 Rounds run through `core.rounds.run_rounds`; every reselection is
 published to a host `Blockchain`, verified before returning. The
@@ -109,7 +111,10 @@ def main(argv=None):
                     choices=["personal", "public"])
     ap.add_argument("--tiling", default="auto",
                     choices=["auto", "oneshot", "tiled"],
-                    help="'tiled' is not ported yet")
+                    help="oneshot: one block per row / client; tiled: the "
+                         "column-tiled selection and streamed exchange; "
+                         "auto: tiled past the one-shot kernels' shared "
+                         "memory")
     ap.add_argument("--schedule", default="sync", choices=["sync", "gossip"])
     ap.add_argument("--reselect-every", type=int, default=0)
     ap.add_argument("--device", default=None,

@@ -10,8 +10,9 @@ it there without the conftest:
 
 Tolerances as in `chip_smoke.py`: LSH sums within
 1e-5 * (|plain| + ||x_row||_2), code bits equal off |sum| <= 1e-3;
-selection ids and weights equal; exchange l_ij and target rtol 1e-5
-(atol 1e-5 for target), masks equal.
+selection ids and weights equal (one-shot and column-tiled); one-shot
+exchange l_ij and target rtol 1e-5 (atol 1e-5 for target); streamed
+exchange l_ij and target rtol 2e-5, atol 1e-5; masks equal.
 """
 import pytest
 import torch
@@ -109,6 +110,76 @@ def test_kernel_backed_round_matches_plain_round(cuda):
                            device=cuda, log=None)
     _, ho = run_federation("aecg", rounds=2, num_clients=6, backend="oracle",
                            device=cuda, log=None)
+    for a, b in zip(hk, ho):
+        assert a["neighbor_ids"] == b["neighbor_ids"]
+        assert a["valid_mask"] == b["valid_mask"]
+        assert abs(a["mean_loss"] - b["mean_loss"]) <= 1e-4 * abs(
+            b["mean_loss"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,words,n", [(40, 8, 9), (700, 4, 16), (300, 3, 20),
+                                       (130, 32, 128)])
+def test_tiled_selection_kernel_matches_plain(cuda, m, words, n):
+    """Ragged row blocks and column tiles, the registers path (W = 4, 8)
+    and the shared-memory path (W = 3, 32), the largest N, ties."""
+    g = _gen(m)
+    codes = torch.randint(-2 ** 31, 2 ** 31 - 1, (m, words), generator=g,
+                          device=cuda, dtype=torch.int64).to(torch.int32)
+    codes[5:9] = codes[4]
+    bits = words * 32
+    lut = ref.selection_lut(words, bits, 1.0, device=cuda)
+    for scores in (torch.zeros(m, device=cuda),
+                   torch.rand(m, generator=g, device=cuda).round(decimals=1)):
+        for flags in ({}, {"use_lsh": False}, {"use_rank": False}):
+            ki, kw = selection.fused_select_tiled(
+                codes, scores, bits=bits, gamma=1.0, num_neighbors=n, **flags)
+            pi, pw = ref.fused_select_tiled_ref(
+                codes, scores, lut, num_neighbors=n, block_m=64, block_k=128,
+                **flags)
+            oi, ow = selection.fused_select(codes, scores, bits=bits,
+                                            gamma=1.0, num_neighbors=n,
+                                            **flags)
+            assert torch.equal(ki, pi) and torch.equal(kw, pw), flags
+            assert torch.equal(ki, oi) and torch.equal(kw, ow), flags
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,r,c", [(10, 9, 64, 10), (5, 3, 9, 17),
+                                     (4, 8, 16, 4096), (3, 600, 5, 30)])
+@pytest.mark.parametrize("lsh_verification", [True, False])
+def test_streamed_exchange_kernel_matches_plain(cuda, m, n, r, c,
+                                                lsh_verification):
+    """C below a warp (idle lanes), ragged R blocks, C past a tile, and
+    N past the one-shot kernel's 512 threads."""
+    g = _gen(c)
+    own = torch.randn((m, r, c), generator=g, device=cuda) * 3
+    nb = torch.randn((m, n, r, c), generator=g, device=cuda) * 3
+    nb[:, 2] = nb[:, 1]                     # an exact KL tie
+    y = torch.randint(0, c, (m, r), generator=g, device=cuda)
+    sel = torch.rand((m, n), generator=g, device=cuda) < 0.8
+    kl, kv, kt, kh = exchange.fused_exchange_streamed(
+        own, nb, y, sel, lsh_verification=lsh_verification)
+    for plain in (ref.streamed_exchange_ref, ref.all_in_one_exchange_ref):
+        pl, pv, pt, ph = plain(own, nb, y, sel,
+                               lsh_verification=lsh_verification)
+        torch.testing.assert_close(kl, pl, rtol=2e-5, atol=1e-5)
+        torch.testing.assert_close(kt, pt, rtol=2e-5, atol=1e-5)
+        assert torch.equal(kv, pv) and torch.equal(kh, ph)
+
+
+@pytest.mark.cuda
+def test_tiled_kernel_round_matches_tiled_plain_round(cuda):
+    """Two aecg rounds with tiling="tiled" through the kernels and
+    through the plain versions on the card."""
+    from repro_torch.launch.fed import run_federation
+    selection.TILED_KERNEL.launches = exchange.STREAMED_KERNEL.launches = 0
+    _, hk = run_federation("aecg", rounds=2, num_clients=6, backend="kernel",
+                           tiling="tiled", device=cuda, log=None)
+    assert selection.TILED_KERNEL.launches > 0
+    assert exchange.STREAMED_KERNEL.launches > 0
+    _, ho = run_federation("aecg", rounds=2, num_clients=6, backend="oracle",
+                           tiling="tiled", device=cuda, log=None)
     for a, b in zip(hk, ho):
         assert a["neighbor_ids"] == b["neighbor_ids"]
         assert a["valid_mask"] == b["valid_mask"]

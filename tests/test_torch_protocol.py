@@ -245,10 +245,15 @@ def _close(a, b, rtol=1e-4, atol=1e-6):
 
 
 @pytest.mark.parametrize("ref_mode", ["personal", "public"])
-def test_round_matches_jax(tiny_fed, ref_mode):
+@pytest.mark.parametrize("tiling", ["oneshot", "tiled"])
+def test_round_matches_jax(tiny_fed, ref_mode, tiling):
+    """One round on each side. With "tiled" the JAX CPU oracle runs
+    `fused_select_ref` + `streamed_exchange_ref`, the port
+    `fused_select_tiled_ref` + its `streamed_exchange_ref`."""
     jfed = dataclasses.replace(
         tiny_fed["fed"], ref_mode=ref_mode,
-        dedupe_rankings=jcfg.recommended_dedupe(ref_mode))
+        dedupe_rankings=jcfg.recommended_dedupe(ref_mode),
+        selection_tiling=tiling, exchange_tiling=tiling)
     pfed = pcfg.FedConfig(**dataclasses.asdict(jfed))
     jmc = tiny_fed["mcfg"]
     pmc = pcfg.ClientModelConfig(**dataclasses.asdict(jmc))
@@ -307,7 +312,8 @@ def test_round_matches_jax(tiny_fed, ref_mode):
         assert np.array_equal(pbits[~near], jbits[~near])
         near_zero += int(near.sum())
         jstate = jnew
-    print(f"{ref_mode}: {near_zero} code bits with |JAX sum| <= 1e-3")
+    print(f"{ref_mode}/{tiling}: {near_zero} code bits with |JAX sum| "
+          "<= 1e-3")
 
 
 @pytest.mark.parametrize("kind", ["cnn", "tcn"])
@@ -396,11 +402,12 @@ def test_backend_resolution():
         resolve("tpu", "cpu")
     with pytest.raises(NotImplementedError, match="not ported yet"):
         resolve("ann", "cpu")
-    assert resolve_tiling("auto") == resolve_tiling("oneshot") == "oneshot"
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        resolve_tiling("tiled")
-    with pytest.raises(ValueError, match="unknown tiling"):
-        resolve_tiling("x")
+    assert resolve_tiling("auto", 0) == resolve_tiling("oneshot", 0) \
+        == "oneshot"
+    assert resolve_tiling("tiled", 0) == "tiled"
+    assert resolve_tiling("auto", 10 ** 9) == "tiled"
+    with pytest.raises(ValueError, match=r"unknown tiling: 'x' \(expected"):
+        resolve_tiling("x", 0)
 
 
 def test_random_ablation_draws_from_the_generator(tiny_fed):
