@@ -5,40 +5,56 @@
 
 1. Prints the card's name and power limit (nvidia-smi) and builds the
    port's CUDA kernels from `src/repro_torch/kernels/csrc` (one nvcc per
-   source, all started together).
+   source, all started together; the batched and single-client LSH
+   kernels share a source).
 2. Holds each kernel against its plain PyTorch version on the card, at
    the main path's shapes and at larger ones from the JAX kernels'
-   contract points, and times kernel, plain version and (for the LSH
-   projection) one torch.matmul with the projection matrix materialised:
-   device time per call from torch.profiler, and CUDA-event medians of
-   whole calls after warm-up (`timings`). The column-tiled selection is
-   also held against the one-shot kernel wherever that runs (to
-   M = 46,489) and checked at M = 65,536 past it; the streamed exchange
-   is held against both plain versions, up to a 100,352-class
-   vocabulary, and the one-shot kernel is timed at each of its shapes.
-   One JSON line per kernel and shape.
-3. Drives the main path: `run_federation("mnist", rounds=2,
-   backend="kernel")` on the card, then the same federation with
-   `tiling="tiled"`; every kernel's launch count is set to 0 just before
-   each and read just after. The one-shot run must launch the LSH,
-   one-shot selection and one-shot exchange kernels and not the tiled
-   pair, the tiled run the reverse. A run with `backend="oracle"` and
-   the tiled run must give the one-shot run's round-0 neighbour ids and
-   valid masks, and accuracy per round within 0.02. One
-   `select_partners` call at M = 65,536 with `tiling="auto"` must launch
-   the tiled selection. Two profiled runs (one-shot and tiled) break
-   round 1 down into its phases' host time, the device's busy time and
-   the kernels that took it (`profile_round`).
+   contract points, and times kernel, plain version and, where one
+   PyTorch call computes the same function, that call (torch.matmul
+   with the projection matrix materialised for the LSH kernels,
+   torch.cdist(p=0) on unpacked bits for the Hamming kernel): device
+   time per call from torch.profiler, and CUDA-event medians of whole
+   calls after warm-up (`timings`). The column-tiled selection is also
+   held against the one-shot kernel wherever that runs (to M = 46,489)
+   and checked at M = 65,536 past it; the streamed exchange is held
+   against both plain versions, up to a 100,352-class vocabulary; the
+   ANN selection runs on `ann_candidates` at the defaults (prefix 10,
+   probes 8): the main shape, all ties, clustered codes at M = 4096 and
+   65,536, and with prefix_bits=0 against the one-shot kernel. One JSON
+   line per kernel and shape.
+3. Drives the main paths, every kernel's launch count set to 0 just
+   before each and read just after: `run_federation("mnist", rounds=2,
+   backend="kernel")` on the card, the same with `tiling="tiled"`, and
+   with `backend="ann"`. The one-shot run must launch the LSH, one-shot
+   selection and one-shot exchange kernels and no other, the tiled run
+   the LSH kernel and the tiled pair, the ANN run the LSH kernel, the
+   ANN selection (exactly twice) and the one-shot exchange. A run with
+   `backend="oracle"` and the tiled run must give the one-shot run's
+   round-0 neighbour ids and valid masks, the ANN run its round-0 id
+   sets, in the order of `ann_select_ref` on the round-0 codes; each
+   within 0.02 accuracy per round. On the one-shot run's final state,
+   each client's own code (`client_lsh_code`, the single-client kernel)
+   must equal its published row, and the unfused Eq. 6-8 composition
+   through the Hamming kernel must give the fused kernel's ids. At
+   M = 65,536, `select_partners` must take the tiled kernel with
+   `tiling="auto"` and the ANN kernel with `backend="auto"` (with K,
+   occupancy, times and recall against the tiled exact kernel). Three
+   profiled runs (one-shot, tiled, ANN) break round 1 down into its
+   phases' host time, the device's busy time and the kernels that took
+   it (`profile_round`).
 4. Prints {"kernels": [...]} for every ported kernel, then, last,
    {"ok": true, "device": {...}}.
 
 Exits non-zero, before printing any result, without a CUDA device or
 without the rest of the repository. Tolerances: LSH sums within
 1e-5 * (|plain| + ||x_row||_2) and codes equal on every bit whose |sum|
-> 1e-3; selection ids and weights equal (one-shot and tiled); one-shot
-exchange l_ij and target within rtol 1e-5 (atol 1e-5 for target entries
-near 0); streamed exchange l_ij and target within rtol 2e-5, atol 1e-5
-of both plain versions; valid and has_target equal.
+> 1e-3 (a client's own code against its published row likewise);
+selection ids and weights equal (one-shot, tiled and ANN); Hamming
+distances equal; unfused selection ids equal to the fused kernel's
+except where two Eq. 8 weights are within 1 ulp; one-shot exchange l_ij
+and target within rtol 1e-5 (atol 1e-5 for target entries near 0);
+streamed exchange l_ij and target within rtol 2e-5, atol 1e-5 of both
+plain versions; valid and has_target equal.
 """
 from __future__ import annotations
 
@@ -336,9 +352,154 @@ def check_exchange_streamed(torch, m, n, r, c, gen, all_selected=False):
                 bound_by=by, launches=exchange.STREAMED_KERNEL.launches - n0)
 
 
+def clustered_codes(torch, m, bits, gen, per_cluster=32, flip=0.02):
+    """Codes of a converging federation: cluster centres of `per_cluster`
+    clients each, every client's bits flipped with probability `flip`
+    (the JAX ANN tests' regime), and Eq. 7-like scores concentrated in
+    [0.75, 1] (distance-dominated Eq. 8)."""
+    from repro_torch.kernels import ops
+    centers = torch.rand((max(m // per_cluster, 1), bits), generator=gen,
+                         device="cuda") < 0.5
+    assign = torch.randint(0, centers.shape[0], (m,), generator=gen,
+                           device="cuda")
+    flips = torch.rand((m, bits), generator=gen, device="cuda") < flip
+    codes = ops.pack_bits((centers[assign] ^ flips).float() * 2 - 1)
+    scores = 0.75 + 0.25 * torch.rand(m, generator=gen, device="cuda")
+    return codes, scores
+
+
+def ann_inputs(torch, m, bits, n, gen, kind, prefix_bits=10, probes=8):
+    """Codes, scores and the `ann_candidates` of one selection (seed 0):
+    kind "random" (gridded scores), "ties" (all scores 0, round 0) or
+    "clustered"."""
+    from repro_torch.core import ann
+    if kind == "clustered":
+        codes, scores = clustered_codes(torch, m, bits, gen)
+    else:
+        codes, scores = selection_inputs(torch, m, bits, gen,
+                                         ties=kind == "ties")
+    cand = ann.ann_candidates(codes, scores, seed=0, prefix_bits=prefix_bits,
+                              probes=probes, num_neighbors=min(n, m - 1))
+    return codes, scores, cand
+
+
+def ann_bound(cand_ids, m, w, n):
+    """Codes, scores, table and candidate ids read once, the (M, N)
+    outputs written once; 3*W integer operations (XOR, popcount, add)
+    per valid candidate that is not the row itself, counted on these
+    candidates."""
+    import torch
+    k = cand_ids.shape[1]
+    nsel = min(n, m - 1)
+    rows = torch.arange(m, device=cand_ids.device)[:, None]
+    valid = int(((cand_ids < m) & (cand_ids != rows)).sum())
+    bytes_moved = (4.0 * (m * w + m + m * k + w * 32 + 1)
+                   + 8.0 * m * nsel)
+    return bound(bytes_moved, 3.0 * valid * w / INT32_OP_PER_S)
+
+
+def check_selection_ann(torch, m, bits, n, gen, kind="random",
+                        prefix_bits=10, probes=8):
+    """The ANN kernel against `ann_select_ref` on the same candidates;
+    with prefix_bits=0 also against the one-shot exact kernel, whose
+    device time is recorded beside it (`oneshot_ms`)."""
+    from repro_torch.kernels import ref, selection
+    codes, scores, cand = ann_inputs(torch, m, bits, n, gen, kind,
+                                     prefix_bits, probes)
+    lut = ref.selection_lut(bits // 32, bits, 1.0, device=codes.device)
+    call = lambda: selection.fused_select_ann(     # noqa: E731
+        codes, scores, cand.ids, bits=bits, gamma=1.0, num_neighbors=n)
+    plain = lambda: ref.ann_select_ref(            # noqa: E731
+        codes, scores, cand.ids, lut, num_neighbors=n)
+    ki, kw = call()
+    pi, pw = plain()
+    torch.cuda.synchronize()
+    if not (torch.equal(ki, pi) and torch.equal(kw, pw)):
+        raise AssertionError(f"ANN selection disagrees with its plain "
+                             f"version at m={m}, kind={kind}")
+    out = {"k": cand.ids.shape[1], "oneshot_ms": None}
+    if prefix_bits == 0:
+        oi, ow = selection.fused_select(codes, scores, bits=bits, gamma=1.0,
+                                        num_neighbors=n)
+        torch.cuda.synchronize()
+        if not (torch.equal(ki, oi) and torch.equal(kw, ow)):
+            raise AssertionError(f"ANN selection with prefix_bits=0 differs "
+                                 f"from the one-shot kernel at m={m}")
+        out["oneshot_ms"] = device_ms(lambda: selection.fused_select(
+            codes, scores, bits=bits, gamma=1.0, num_neighbors=n),
+            ("fused_select_kernel",))
+    n0 = selection.ANN_KERNEL.launches
+    t = timings(call, ("select_ann_kernel",), plain,
+                plain_iters=1 if m > 8192 else (3 if m >= 1024 else 20))
+    bms, by = ann_bound(cand.ids, m, bits // 32, n)
+    return dict(**t, **out, max_abs_err=max_finite_diff(kw, pw), bound_ms=bms,
+                bound_by=by, launches=selection.ANN_KERNEL.launches - n0)
+
+
+def check_lsh_single(torch, p, bits, gen):
+    """The single-client kernel against its plain version, and its sums
+    against the batched kernel's row on the same vector (`batched_equal`:
+    bit for bit)."""
+    from repro_torch.kernels import lsh_projection, ops, ref
+    x = torch.randn((p,), generator=gen, device="cuda") * 0.05
+    k = lsh_projection.lsh_project_sums(x, 7, bits=bits)
+    pl = ref.lsh_project_sums_ref(x, 7, bits=bits)
+    row = lsh_projection.lsh_project_sums_batched(x[None], 7, bits=bits)[0]
+    torch.cuda.synchronize()
+    err = (k - pl).abs()
+    if not bool((err <= 1e-5 * (pl.abs() + x.norm())).all()):
+        raise AssertionError(f"lsh_single sums disagree: max err "
+                             f"{err.max().item()}")
+    off_zero = pl.abs() > 1e-3
+    if not torch.equal((k > 0)[off_zero], (pl > 0)[off_zero]):
+        raise AssertionError("lsh_single code bits disagree off zero")
+    n0 = lsh_projection.SINGLE_KERNEL.launches
+    r = ops.rademacher_block(0, p, bits, 7, device="cuda")
+    t = timings(lambda: lsh_projection.lsh_project_sums(x, 7, bits=bits),
+                ("lsh_partial_kernel", "lsh_reduce_kernel"),
+                lambda: ref.lsh_project_sums_ref(x, 7, bits=bits),
+                library_fn=lambda: torch.matmul(x, r), plain_iters=5)
+    del r
+    ops_s = max(2.0 * p * bits / F32_FLOP_PER_S,
+                HASH_OPS * p * bits / INT32_OP_PER_S)
+    bms, by = bound(4.0 * p + 4.0 * bits, ops_s)
+    return dict(**t, max_abs_err=err.max().item(), bound_ms=bms, bound_by=by,
+                batched_equal=bool(torch.equal(k, row)),
+                launches=lsh_projection.SINGLE_KERNEL.launches - n0)
+
+
+def check_hamming(torch, m, bits, gen):
+    """All pairs of one code set, as `lsh.distance_matrix` computes them,
+    against the plain version; `library_ms` is torch.cdist(p=0) on the
+    unpacked bits as float (counts the differing bits; unpacking not
+    timed)."""
+    from repro_torch.kernels import hamming, ops, ref
+    w = bits // 32
+    codes, _ = selection_inputs(torch, m, bits, gen, ties=True)
+    codes[1] = codes[0]
+    k = hamming.hamming_all_pairs(codes, codes)
+    pl = ref.hamming_all_pairs_ref(codes, codes)
+    torch.cuda.synchronize()
+    if not torch.equal(k, pl):
+        raise AssertionError(f"hamming disagrees at m={m}, bits={bits}")
+    del k, pl
+    unpacked = ops.unpack_bits(codes, bits).float()
+    n0 = hamming.KERNEL.launches
+    t = timings(lambda: hamming.hamming_all_pairs(codes, codes),
+                ("hamming_kernel",),
+                lambda: ref.hamming_all_pairs_ref(codes, codes),
+                library_fn=lambda: torch.cdist(unpacked, unpacked, p=0),
+                plain_iters=2 if m > 8192 else 20)
+    bms, by = bound(4.0 * (2 * m * w + m * m), 3.0 * m * m * w
+                    / INT32_OP_PER_S)
+    return dict(**t, max_abs_err=0.0, bound_ms=bms, bound_by=by,
+                launches=hamming.KERNEL.launches - n0)
+
+
 def profile_round(run_federation, names, tiling: str = "auto",
-                  round_idx: int = 1):
-    """Profile a kernel-backed mnist federation under `tiling` and break round
+                  backend: str = "kernel", round_idx: int = 1):
+    """Profile an mnist federation under `backend` ("kernel" or "ann")
+    and `tiling` and break round
     `round_idx` down: its wall time (the "wpfed.round.<i>" span), the
     host time of each phase span, the device's busy time (summed CUDA
     activity starting inside the span) and idle share, that busy time by
@@ -350,7 +511,7 @@ def profile_round(run_federation, names, tiling: str = "auto",
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        run_federation("mnist", rounds=round_idx + 1, backend="kernel",
+        run_federation("mnist", rounds=round_idx + 1, backend=backend,
                        tiling=tiling, device="cuda", log=None)
     evts = prof.events()
     span = next(e for e in evts if e.name == f"wpfed.round.{round_idx}")
@@ -371,7 +532,8 @@ def profile_round(run_federation, names, tiling: str = "auto",
         dev_phase[owner] += ms
     wall = span.time_range.elapsed_us() / 1e3
     busy = sum(by_name.values())
-    return {"tiling": tiling, "round": round_idx, "wall_ms": wall, "phases_ms": dict(phases),
+    return {"backend": backend, "tiling": tiling, "round": round_idx,
+            "wall_ms": wall, "phases_ms": dict(phases),
             "device_busy_ms": busy,
             "device_idle_share": 1.0 - busy / wall if wall else None,
             "device_ms_by_phase": dict(dev_phase),
@@ -387,17 +549,18 @@ def emit(obj) -> None:
 
 def run_main_path(run_federation, kernels, **kw):
     """Two mnist rounds on the card, with every kernel's launch count set
-    to 0 just before and read just after; emits one line per round."""
+    to 0 just before and read just after; emits one line per round and
+    returns (history, launches, final state)."""
     for k in kernels.values():
         k.launches = 0
-    _, hist = run_federation("mnist", rounds=2, device="cuda", log=None,
-                             **kw)
+    state, hist = run_federation("mnist", rounds=2, device="cuda", log=None,
+                                 **kw)
     launches = {name: k.launches for name, k in kernels.items()}
     for h in hist:
         emit({"phase": "main_path", **kw, "round": h["round"],
               "acc": h["acc"], "mean_loss": h["mean_loss"],
               "seconds": h["seconds"]})
-    return hist, launches
+    return hist, launches, state
 
 
 def expect_launches(launches, used, unused, label):
@@ -410,11 +573,16 @@ def expect_launches(launches, used, unused, label):
                              f"and {stray} kernels it must not")
 
 
-def expect_same_run(hist, base, label):
-    """Round-0 selection and masks equal, accuracy within 0.02 per round,
-    finite losses."""
-    if hist[0]["neighbor_ids"] != base[0]["neighbor_ids"] or \
-            hist[0]["valid_mask"] != base[0]["valid_mask"]:
+def expect_same_run(hist, base, label, id_sets=False):
+    """Round-0 selection and masks equal (with `id_sets`: each row's set
+    of ids), accuracy within 0.02 per round, finite losses."""
+    if id_sets:
+        same = [set(a) for a in hist[0]["neighbor_ids"]] == \
+            [set(b) for b in base[0]["neighbor_ids"]]
+    else:
+        same = hist[0]["neighbor_ids"] == base[0]["neighbor_ids"] and \
+            hist[0]["valid_mask"] == base[0]["valid_mask"]
+    if not same:
         raise AssertionError(f"round-0 selection of the {label} run differs "
                              "from the one-shot kernel run")
     for a, b in zip(hist, base):
@@ -450,6 +618,152 @@ def check_auto_tiling_at_scale(torch, gen, m=65_536, bits=256, n=16):
                              f"not take the tiled kernel: {launched}")
 
 
+def mnist_fed(backend: str = "kernel", **kw):
+    """The FedConfig `run_federation("mnist", ...)` builds at its
+    defaults (10 clients, N=12 clamped to 9)."""
+    from repro_torch.configs.paper_models import (FedConfig,
+                                                  PAPER_FED_OPTIMA)
+    n_opt, alpha, gamma = PAPER_FED_OPTIMA["mnist"]
+    return FedConfig(num_clients=10, num_neighbors=n_opt, alpha=alpha,
+                     gamma=gamma, selection_backend=backend,
+                     exchange_backend="kernel", **kw)
+
+
+def check_ann_round0_order(torch, hist):
+    """The ANN run's round-0 ids in order: `ann_select_ref` on the round-0
+    codes (the initial state's, rebuilt as `run_federation` builds it)
+    and the round's scores, candidates from `ann_candidates` seeded with
+    round 0."""
+    from repro_torch.core import ann, init_state
+    from repro_torch.kernels import ref
+    from repro_torch.launch.fed import MODEL_FOR
+    from repro_torch.models.client import init_client_model
+    from repro_torch.optim import adam
+    fed = mnist_fed("ann")
+    mcfg = MODEL_FOR["mnist"]()
+    st = init_state(lambda g: init_client_model(mcfg, g, "cuda"),
+                    adam(fed.lr), fed, 0)
+    scores = torch.tensor(hist[0]["ranking_scores"], device="cuda")
+    n = min(fed.num_neighbors, fed.num_clients - 1)
+    cand = ann.ann_candidates(st.codes, scores, seed=0,
+                              prefix_bits=fed.ann_prefix_bits,
+                              probes=fed.ann_probes, num_neighbors=n)
+    lut = ref.selection_lut(st.codes.shape[1], fed.lsh_bits, fed.gamma,
+                            device="cuda")
+    ids, _ = ref.ann_select_ref(st.codes, scores, cand.ids, lut,
+                                num_neighbors=n)
+    emit({"phase": "ann_round0_order", "k": cand.ids.shape[1],
+          "ids": ids.tolist()})
+    if ids.tolist() != hist[0]["neighbor_ids"]:
+        raise AssertionError("round-0 ids of the ANN run differ from "
+                             "ann_select_ref on the round-0 codes")
+
+
+def check_auto_ann_at_scale(torch, gen, m=65_536, bits=256, n=16):
+    """Path 2: `select_partners(backend="auto")` at M=65,536 on clustered
+    codes must launch the ANN kernel once and no exact selection kernel,
+    and give `ann_select_ref`'s ids on the same candidates. Reports K,
+    the occupancy, the candidate generation's and the kernel's time, the
+    whole ANN selection's, and recall@N against the tiled exact kernel on
+    the same inputs (device time; the profiler may drop records of the
+    15 ms tiled kernel, so its CUDA-event call time is printed too)."""
+    from repro_torch.configs.paper_models import FedConfig
+    from repro_torch.core import ann
+    from repro_torch.core.neighbor import select_partners
+    from repro_torch.kernels import ref, selection
+    codes, scores = clustered_codes(torch, m, bits, gen)
+    fed = FedConfig(num_clients=m, num_neighbors=n, lsh_bits=bits)
+    kernels = (selection.ANN_KERNEL, selection.KERNEL, selection.TILED_KERNEL)
+    before = [k.launches for k in kernels]
+    ids, mask = select_partners(codes, scores, fed, backend="auto", seed=0)
+    launched = [k.launches - b for k, b in zip(kernels, before)]
+    gen_cand = lambda: ann.ann_candidates(         # noqa: E731
+        codes, scores, seed=0, prefix_bits=fed.ann_prefix_bits,
+        probes=fed.ann_probes, num_neighbors=n)
+    cand = gen_cand()
+    lut = ref.selection_lut(bits // 32, bits, fed.gamma, device="cuda")
+    want, _ = ref.ann_select_ref(codes, scores, cand.ids, lut,
+                                 num_neighbors=n)
+    kernel = lambda: selection.fused_select_ann(   # noqa: E731
+        codes, scores, cand.ids, bits=bits, gamma=fed.gamma, num_neighbors=n)
+    tiled = lambda: selection.fused_select_tiled(  # noqa: E731
+        codes, scores, bits=bits, gamma=fed.gamma, num_neighbors=n)
+    exact, _ = tiled()
+    torch.cuda.synchronize()
+    hits = (ids.long()[:, :, None] == exact.long()[:, None, :]).any(-1)
+    out = {"phase": "auto_ann", "m": m, "bits": bits, "n": n,
+           "ann_launches": launched[0], "oneshot_launches": launched[1],
+           "tiled_launches": launched[2], **ann.occupancy_stats(cand),
+           "recall_vs_tiled_exact": hits.float().mean().item(),
+           "candidates_ms": time_ms(gen_cand, iters=5),
+           "kernel_ms": device_ms(kernel, ("select_ann_kernel",)),
+           "select_partners_ms": time_ms(lambda: select_partners(
+               codes, scores, fed, backend="auto", seed=0), iters=5),
+           "tiled_exact_call_ms": time_ms(tiled, iters=5),
+           "tiled_exact_ms": device_ms(tiled, ("select_tiled_kernel",),
+                                       iters=5)}
+    emit(out)
+    if launched != [1, 0, 0] or not torch.equal(ids, want) or \
+            not bool(mask.all()):
+        raise AssertionError(f"select_partners(backend='auto') at M={m} did "
+                             f"not take the ANN kernel: {launched}")
+
+
+def client_codes_and_distances(torch, state, kernels):
+    """Path 3 on the one-shot run's final state, with every launch count
+    set to 0 just before and read just after: each client's own code
+    through the single-client kernel against its row of the published
+    codes, and the unfused Eq. 6-8 composition through the Hamming kernel
+    against the fused one-shot kernel's ids on the same codes and scores
+    (equal, except where two Eq. 8 weights are within 1 ulp: the unfused
+    weights run torch.exp on the card, the fused ones gather the table
+    built on the CPU)."""
+    from repro_torch.core import lsh, neighbor
+    from repro_torch.core.protocol import client, select_phase
+    from repro_torch.kernels import lsh_projection, ops
+    fed = mnist_fed("kernel")
+    for k in kernels.values():
+        k.launches = 0
+    own = torch.stack([lsh.client_lsh_code(client(state.params, i),
+                                           state.round, bits=fed.lsh_bits)
+                       for i in range(fed.num_clients)])
+    sel = select_phase(state, fed)
+    dn = lsh.normalized_distance(lsh.distance_matrix(state.codes),
+                                 fed.lsh_bits)
+    w = neighbor.selection_weights(sel.scores, dn, fed.gamma)
+    ids_u, mask_u = neighbor.select_neighbors(w, fed.num_neighbors)
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in kernels.items()}
+    # near-zero sums: the published (batched) codes' sums of the same rows
+    flat = ops.flatten_params_batched(state.params)
+    sums = lsh_projection.lsh_project_sums_batched(flat, state.round,
+                                                   bits=fed.lsh_bits)
+    near = sums.abs() <= 1e-3
+    own_bits = ops.unpack_bits(own, fed.lsh_bits).bool()
+    pub_bits = ops.unpack_bits(state.codes, fed.lsh_bits).bool()
+    wf = torch.gather(w, 1, sel.ids.long())
+    wu = torch.gather(w, 1, ids_u.long())
+    ulps = (wf.view(torch.int32).long() - wu.view(torch.int32).long()).abs()
+    same_ids = torch.equal(sel.ids, ids_u)
+    emit({"phase": "client_codes_and_distances", **launches,
+          "codes_equal_all_bits": bool(torch.equal(own, state.codes)),
+          "near_zero_bits": int(near.sum()),
+          "unfused_ids_equal": same_ids,
+          "max_weight_ulps_where_ids_differ": int(ulps.max())})
+    if not torch.equal(own_bits[~near], pub_bits[~near]):
+        raise AssertionError("client_lsh_code differs from the published "
+                             "codes off near-zero sums")
+    if not (same_ids or int(ulps.max()) <= 1) or not bool(mask_u.all()):
+        raise AssertionError("the unfused Eq. 6-8 selection differs from "
+                             "the fused kernel's beyond 1-ulp near-ties")
+    if launches["lsh_single"] != fed.num_clients or \
+            launches["hamming"] != 1:
+        raise AssertionError(f"path 3 did not launch lsh_single "
+                             f"{fed.num_clients} times and hamming once: "
+                             f"{launches}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -463,14 +777,18 @@ def main() -> int:
     print(smi, flush=True)
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.device import resolve_device
-    from repro_torch.kernels import build, exchange, lsh_projection, selection
+    from repro_torch.kernels import (build, exchange, hamming, lsh_projection,
+                                     selection)
     from repro_torch.launch.fed import run_federation
 
     resolve_device("cuda")               # strict f32: TF32 off
     kernels = {"lsh_projection": lsh_projection.KERNEL,
                "selection": selection.KERNEL, "exchange": exchange.KERNEL,
                "selection_tiled": selection.TILED_KERNEL,
-               "exchange_streamed": exchange.STREAMED_KERNEL}
+               "exchange_streamed": exchange.STREAMED_KERNEL,
+               "selection_ann": selection.ANN_KERNEL,
+               "lsh_single": lsh_projection.SINGLE_KERNEL,
+               "hamming": hamming.KERNEL}
     t0 = time.perf_counter()
     logs = build.build_all(kernels.values())
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -521,6 +839,28 @@ def main() -> int:
                                                             gen))
         for m, n, r, c in ((8, 8, 32, 2048), (4, 16, 64, 1024),
                            (4, 8, 16, 4096), (8, 8, 32, 100_352))
+    ] + [
+        ("selection_ann", dict(m=10, bits=256, n=9, k=100), True,
+         lambda: check_selection_ann(torch, 10, 256, 9, gen)),
+        ("selection_ann", dict(m=10, bits=256, n=9, k=100, ties=True), False,
+         lambda: check_selection_ann(torch, 10, 256, 9, gen, kind="ties")),
+        ("selection_ann", dict(m=4096, bits=256, n=16, clustered=True), False,
+         lambda: check_selection_ann(torch, 4096, 256, 16, gen,
+                                     kind="clustered")),
+        ("selection_ann", dict(m=65_536, bits=256, n=16, clustered=True),
+         False, lambda: check_selection_ann(torch, 65_536, 256, 16, gen,
+                                            kind="clustered")),
+        ("selection_ann", dict(m=4096, bits=256, n=16, prefix_bits=0), False,
+         lambda: check_selection_ann(torch, 4096, 256, 16, gen,
+                                     prefix_bits=0, probes=0)),
+    ] + [
+        ("lsh_single", dict(p=p, bits=256), p == 421_888,
+         lambda p=p: check_lsh_single(torch, p, 256, gen))
+        for p in (421_888, 4096, 8192)
+    ] + [
+        ("hamming", dict(m=m, bits=256), m == 10,
+         lambda m=m: check_hamming(torch, m, 256, gen))
+        for m in (10, 1024, 16_384)
     ]
     for name, shape, is_main, run in checks:
         res = run()
@@ -530,28 +870,45 @@ def main() -> int:
             main_shape[name] = res
         torch.cuda.empty_cache()
 
-    # 3. the main path: one-shot kernels, plain versions, tiled kernels
+    # 3. the main paths: one-shot kernels, plain versions, tiled kernels,
+    # ANN selection; then the per-client code and the unfused Eq. 6-8
     oneshot = ("lsh_projection", "selection", "exchange")
     tiled = ("lsh_projection", "selection_tiled", "exchange_streamed")
-    hist, launches = run_main_path(run_federation, kernels, backend="kernel")
+    ann_path = ("lsh_projection", "selection_ann", "exchange")
+    hist, launches, state = run_main_path(run_federation, kernels,
+                                          backend="kernel")
     expect_launches(launches, oneshot, set(kernels) - set(oneshot),
                     "one-shot")
-    hist_o, _ = run_main_path(run_federation, kernels, backend="oracle")
+    hist_o, _, _ = run_main_path(run_federation, kernels, backend="oracle")
     expect_same_run(hist_o, hist, "oracle")
-    hist_t, launches_t = run_main_path(run_federation, kernels,
-                                       backend="kernel", tiling="tiled")
+    hist_t, launches_t, _ = run_main_path(run_federation, kernels,
+                                          backend="kernel", tiling="tiled")
     expect_launches(launches_t, tiled, set(kernels) - set(tiled), "tiled")
     expect_same_run(hist_t, hist, "tiled")
+    hist_a, launches_a, _ = run_main_path(run_federation, kernels,
+                                          backend="ann")
+    expect_launches(launches_a, ann_path, set(kernels) - set(ann_path), "ann")
+    if launches_a["selection_ann"] != 2:
+        raise AssertionError("the ann run launched the ANN selection "
+                             f"{launches_a['selection_ann']} times, not 2")
+    expect_same_run(hist_a, hist, "ann", id_sets=True)
+    check_ann_round0_order(torch, hist_a)
+    launches_c = client_codes_and_distances(torch, state, kernels)
     for name in ("selection_tiled", "exchange_streamed"):
         launches[name] = launches_t[name]
+    launches["selection_ann"] = launches_a["selection_ann"]
+    for name in ("lsh_single", "hamming"):
+        launches[name] = launches_c[name]
     check_auto_tiling_at_scale(torch, gen)
+    check_auto_ann_at_scale(torch, gen)
 
     names = ("lsh_partial_kernel", "lsh_reduce_kernel", "fused_select_kernel",
              "fused_exchange_kernel", "select_tiled_kernel",
-             *STREAMED_EXCHANGE_NAMES)
-    for tiling in ("oneshot", "tiled"):
-        emit({"phase": "profile", **profile_round(run_federation, names,
-                                                  tiling=tiling)})
+             *STREAMED_EXCHANGE_NAMES, "select_ann_kernel")
+    for backend, tiling in (("kernel", "oneshot"), ("kernel", "tiled"),
+                            ("ann", "auto")):
+        emit({"phase": "profile", **profile_round(
+            run_federation, names, tiling=tiling, backend=backend)})
 
     # 4. every ported kernel
     meta = {
@@ -566,6 +923,12 @@ def main() -> int:
         "exchange_streamed": (
             "src/repro_torch/kernels/csrc/exchange_streamed.cu",
             "src/repro/kernels/exchange.py:309"),
+        "selection_ann": ("src/repro_torch/kernels/csrc/selection_ann.cu",
+                          "src/repro/kernels/selection.py:398"),
+        "lsh_single": ("src/repro_torch/kernels/csrc/lsh_projection.cu",
+                       "src/repro/kernels/lsh_projection.py:92"),
+        "hamming": ("src/repro_torch/kernels/csrc/hamming.cu",
+                    "src/repro/kernels/hamming.py:52"),
     }
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": meta[name][0],

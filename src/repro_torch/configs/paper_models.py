@@ -83,7 +83,9 @@ class FedConfig:
     # by repro_torch.core.backends.resolve: "kernel" launches the CUDA
     # kernels (CUDA tensors only), "oracle" runs their plain PyTorch
     # versions, "auto" is kernel on a CUDA device and oracle on the CPU.
-    # "ann" (the LSH-bucket candidate index) is not ported yet.
+    # Selection also takes "ann", the LSH-bucket candidate index
+    # (core/ann.py + the ANN selection kernel), which "auto" picks past
+    # backends.ANN_AUTO_MIN_M clients and ANN_AUTO_MIN_RATIO.
     selection_backend: str = "auto"   # Eq. 5-8 selection (DESIGN.md §4, §11)
     exchange_backend: str = "auto"    # Eq. 3 + §3.5 exchange (DESIGN.md §7)
     # ANN selection knobs (DESIGN.md §11): clients sharing a seeded

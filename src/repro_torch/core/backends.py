@@ -7,6 +7,13 @@ not carry over). `FedConfig`'s strings keep their meaning:
   "oracle" -> the kernel's plain PyTorch version (`kernels/ref.py`),
   "auto"   -> kernel on a CUDA device, oracle on the CPU.
 
+Selection also accepts "ann", the LSH-bucket candidate index
+(`core/ann.py`), through `resolve_selection`: explicit "ann" at any M,
+and "auto" past both `ANN_AUTO_MIN_M` clients and an exact-to-ANN FLOP
+ratio of `ANN_AUTO_MIN_RATIO`, the JAX package's rule and values, so
+both packages pick the same partners. The exchange has no ANN form, so
+plain `resolve` rejects "ann".
+
 Tiling:
 
   "oneshot" -> the one-block-per-row selection and one-block-per-client
@@ -32,6 +39,11 @@ from repro_torch.kernels.build import MAX_SHARED_BYTES
 
 BACKENDS = ("auto", "kernel", "oracle")
 TILINGS = ("auto", "oneshot", "tiled")
+SELECTION_BACKENDS = BACKENDS + ("ann",)
+
+# "auto" hands selection to the ANN path only past both thresholds
+ANN_AUTO_MIN_M = 4096
+ANN_AUTO_MIN_RATIO = 4.0
 
 
 def _reject(field: str, value, accepted) -> ValueError:
@@ -42,9 +54,6 @@ def _reject(field: str, value, accepted) -> ValueError:
 def resolve(backend: str, device) -> str:
     """Validate `backend` for tensors on `device`: "kernel" or "oracle"."""
     dev = torch.device(device)
-    if backend == "ann":
-        raise NotImplementedError(
-            "the 'ann' selection backend is not ported yet")
     if backend not in BACKENDS:
         raise _reject("backend", backend, BACKENDS)
     if backend == "auto":
@@ -53,6 +62,35 @@ def resolve(backend: str, device) -> str:
         raise ValueError("backend 'kernel' launches CUDA kernels and needs "
                          f"a CUDA device, got {dev}")
     return backend
+
+
+def selection_flops(m: int, bits_tot: int) -> float:
+    """Exact selection prices every pair: 2 * M^2 * bits per round."""
+    return 2.0 * m * m * bits_tot
+
+
+def ann_selection_flops(m: int, bits_tot: int, k: int) -> float:
+    """ANN selection prices only the K candidates of each client
+    (`ann.candidate_count`): 2 * M * K * bits."""
+    return 2.0 * m * k * bits_tot
+
+
+def resolve_selection(backend: str, m: int, *, exact_flops: float,
+                      ann_flops: float, device) -> str:
+    """Resolve a selection backend to "ann", "kernel" or "oracle".
+    "ann" is explicit at any M; "auto" takes it once
+    m >= ANN_AUTO_MIN_M and exact_flops >= ANN_AUTO_MIN_RATIO *
+    ann_flops, and below either threshold resolves as `resolve` does."""
+    if backend == "ann":
+        return "ann"
+    if backend == "auto":
+        if m >= ANN_AUTO_MIN_M and \
+                exact_flops >= ANN_AUTO_MIN_RATIO * ann_flops:
+            return "ann"
+        return resolve("auto", device)
+    if backend not in ("kernel", "oracle"):
+        raise _reject("selection backend", backend, SELECTION_BACKENDS)
+    return resolve(backend, device)
 
 
 # the one-shot kernels' shared memory per block, from their wrappers

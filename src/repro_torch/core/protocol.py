@@ -117,7 +117,8 @@ def select_phase(state: FedState, fed: FedConfig, *,
                  generator: torch.Generator = None) -> SelectResult:
     """Steps 1-3: §3.6 reveal verification -> Eq. 7 ranking scores ->
     fused Eq. 6-8 top-N partner selection. `generator` is consumed only
-    by the random-selection ablation (use_lsh=False, use_rank=False)."""
+    by the random-selection ablation (use_lsh=False, use_rank=False);
+    the round index seeds the ANN bucket permutation."""
     m = fed.num_clients
     if fed.rank_verification:
         reporter_mask = verify.verify_rankings_fnv(state.rankings,
@@ -129,7 +130,8 @@ def select_phase(state: FedState, fed: FedConfig, *,
         torch.where(reporter_mask[:, None], state.rankings, -1),
         m, fed.top_k, dedupe=fed.dedupe_rankings)
     ids, sel_mask = neighbor.select_partners(state.codes, scores, fed,
-                                             generator=generator)
+                                             generator=generator,
+                                             seed=state.round)
     return SelectResult(ids, sel_mask, scores, reporter_mask)
 
 

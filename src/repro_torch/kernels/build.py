@@ -6,7 +6,7 @@ headers), so `nvcc` takes seconds per file. A source is compiled for
 checkout (listed in `.gitignore`), under a name keyed by a hash of the
 source and the flags; a later process reuses the library. A missing
 `nvcc` or a failed compile raises. `build_all` compiles several sources
-at once, one `nvcc` process per source.
+at once, one `nvcc` process per source (two kernels may share one).
 
 Every exported C function launches on the stream it is given and
 returns `cudaGetLastError()` after its launches; `CudaKernel.launch`
@@ -119,9 +119,13 @@ def build_all(kernels: Iterable[CudaKernel]) -> Dict[str, str]:
     """Compile every kernel's source at once (one nvcc per source) and
     load them. Returns {name: nvcc log} for the sources compiled now."""
     kernels = list(kernels)
-    started = [k._start_build() for k in kernels]
+    by_library = {}                # one nvcc per source, by its first kernel
+    for k in kernels:
+        by_library.setdefault(k.library_path(), k)
+    owners = list(by_library.values())
+    started = [k._start_build() for k in owners]
     errors = []
-    for k, s in zip(kernels, started):      # wait for every nvcc first
+    for k, s in zip(owners, started):       # wait for every nvcc first
         try:
             k._finish_build(s)
         except RuntimeError as e:
@@ -130,4 +134,4 @@ def build_all(kernels: Iterable[CudaKernel]) -> Dict[str, str]:
         raise RuntimeError("\n".join(errors))
     for k in kernels:
         k.function()
-    return {k.name: k.build_log for k, s in zip(kernels, started) if s}
+    return {k.name: k.build_log for k, s in zip(owners, started) if s}

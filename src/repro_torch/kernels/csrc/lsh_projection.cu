@@ -1,4 +1,5 @@
-// Batched LSH projection (WPFed Eq. 5) for Hopper (sm_90a).
+// Batched and single-client LSH projection (WPFed Eq. 5) for Hopper
+// (sm_90a).
 //
 // Replaces repro/kernels/lsh_projection.py:lsh_project_sums_batched
 // (_lsh_batched_kernel): sums[m, j] = sum_p x[m, p] * R[p, j], with R the
@@ -21,6 +22,17 @@
 // partial[s, m, j]. A second kernel adds the splits in a fixed order, so
 // the result is the same from run to run (atomics would add in a varying
 // order and could flip near-zero sums, and with them code bits).
+//
+// The single-client entry point (lsh_project_sums) replaces
+// repro/kernels/lsh_projection.py:lsh_project_sums (_lsh_kernel): the same
+// kernel with TM = 1, so no thread carries 15 dead rows. Its grid is
+// (P / CHUNK, 1, bits / TB), 206 blocks at P=421,888. Each thread adds
+// its split's products in the order the batched kernel does, and the
+// splits are reduced in the same order, so its sums equal the batched
+// kernel's row bit for bit. Unshared, the hash now costs about 8 integer
+// operations per multiply-add: at P=421,888, bits=256 its bound is the
+// hash's 0.86 G integer operations, about 52 us, against 3.2 us for the
+// 2*P*bits f32 operations alone.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -31,7 +43,7 @@ constexpr uint32_t K2 = 40503u;
 constexpr uint32_t K3 = 2246822519u;
 constexpr int CHUNK = 2048;  // parameters per split (P is padded to it)
 constexpr int SUB = 256;     // parameters staged in shared memory at once
-constexpr int TM = 16;       // client rows per block
+constexpr int TM = 16;       // client rows per block (batched)
 constexpr int TB = 256;      // bits per block = threads per block
 
 __device__ __forceinline__ float rademacher(uint32_t p, uint32_t cj) {
@@ -44,24 +56,25 @@ __device__ __forceinline__ float rademacher(uint32_t p, uint32_t cj) {
   return ((h >> 9) & 1u) ? -1.0f : 1.0f;
 }
 
+template <int RM>  // client rows per block
 __global__ void __launch_bounds__(TB)
 lsh_partial_kernel(const float* __restrict__ x, int m, long long p_total,
                    int bits, uint32_t seed, float* __restrict__ partial) {
-  __shared__ __align__(16) float xs[SUB][TM];
+  __shared__ __align__(16) float xs[SUB][RM];
   const int split = blockIdx.x;
-  const int m0 = blockIdx.y * TM;
+  const int m0 = blockIdx.y * RM;
   const int j = blockIdx.z * TB + threadIdx.x;
   const uint32_t cj = (uint32_t)j * K2 + seed * K3;
   const long long p_begin = (long long)split * CHUNK;
 
-  float acc[TM];
+  float acc[RM];
 #pragma unroll
-  for (int t = 0; t < TM; ++t) acc[t] = 0.0f;
+  for (int t = 0; t < RM; ++t) acc[t] = 0.0f;
 
   for (int s = 0; s < CHUNK; s += SUB) {
     __syncthreads();
-    // stage x[m0:m0+TM, p_begin+s : +SUB] as xs[pp][t]; reads run along p
-    for (int idx = threadIdx.x; idx < SUB * TM; idx += TB) {
+    // stage x[m0:m0+RM, p_begin+s : +SUB] as xs[pp][t]; reads run along p
+    for (int idx = threadIdx.x; idx < SUB * RM; idx += TB) {
       const int t = idx / SUB, pp = idx % SUB;
       const int row = m0 + t;
       xs[pp][t] = row < m ? x[(long long)row * p_total + p_begin + s + pp]
@@ -71,21 +84,26 @@ lsh_partial_kernel(const float* __restrict__ x, int m, long long p_total,
     if (j < bits) {
       for (int pp = 0; pp < SUB; ++pp) {
         const float r = rademacher((uint32_t)(p_begin + s + pp), cj);
-        const float4* xv = reinterpret_cast<const float4*>(xs[pp]);
+        if constexpr (RM % 4 == 0) {
+          const float4* xv = reinterpret_cast<const float4*>(xs[pp]);
 #pragma unroll
-        for (int q = 0; q < TM / 4; ++q) {
-          const float4 v = xv[q];
-          acc[4 * q + 0] = fmaf(r, v.x, acc[4 * q + 0]);
-          acc[4 * q + 1] = fmaf(r, v.y, acc[4 * q + 1]);
-          acc[4 * q + 2] = fmaf(r, v.z, acc[4 * q + 2]);
-          acc[4 * q + 3] = fmaf(r, v.w, acc[4 * q + 3]);
+          for (int q = 0; q < RM / 4; ++q) {
+            const float4 v = xv[q];
+            acc[4 * q + 0] = fmaf(r, v.x, acc[4 * q + 0]);
+            acc[4 * q + 1] = fmaf(r, v.y, acc[4 * q + 1]);
+            acc[4 * q + 2] = fmaf(r, v.z, acc[4 * q + 2]);
+            acc[4 * q + 3] = fmaf(r, v.w, acc[4 * q + 3]);
+          }
+        } else {
+#pragma unroll
+          for (int t = 0; t < RM; ++t) acc[t] = fmaf(r, xs[pp][t], acc[t]);
         }
       }
     }
   }
   if (j < bits) {
 #pragma unroll
-    for (int t = 0; t < TM; ++t) {
+    for (int t = 0; t < RM; ++t) {
       if (m0 + t < m)
         partial[((long long)split * m + m0 + t) * bits + j] = acc[t];
     }
@@ -103,6 +121,24 @@ __global__ void lsh_reduce_kernel(const float* __restrict__ partial,
   out[idx] = s;
 }
 
+template <int RM>
+int launch(const float* x, int m, long long p, int bits, unsigned int seed,
+           float* partial, float* out, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int splits = (int)(p / CHUNK);
+  dim3 grid(splits, (m + RM - 1) / RM, (bits + TB - 1) / TB);
+  lsh_partial_kernel<RM><<<grid, TB, 0, st>>>(x, m, p, bits, seed, partial);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long n = (long long)m * bits;
+  const int threads = 256;
+  lsh_reduce_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0,
+                      st>>>(partial, splits, m, bits, out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // x: (m, p) f32 contiguous, p % 2048 == 0; partial: (p/2048, m, bits) f32
@@ -111,17 +147,13 @@ extern "C" int lsh_project_sums_batched(const float* x, int m, long long p,
                                         int bits, unsigned int seed,
                                         float* partial, float* out,
                                         int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int splits = (int)(p / CHUNK);
-  dim3 grid(splits, (m + TM - 1) / TM, (bits + TB - 1) / TB);
-  lsh_partial_kernel<<<grid, TB, 0, st>>>(x, m, p, bits, seed, partial);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const long long n = (long long)m * bits;
-  const int threads = 256;
-  lsh_reduce_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0,
-                      st>>>(partial, splits, m, bits, out);
-  return (int)cudaGetLastError();
+  return launch<TM>(x, m, p, bits, seed, partial, out, device, stream);
+}
+
+// One client: x: (p,) f32, p % 2048 == 0; partial: (p/2048, bits) f32
+// scratch; out: (bits,) f32. Returns cudaGetLastError() after launching.
+extern "C" int lsh_project_sums(const float* x, long long p, int bits,
+                                unsigned int seed, float* partial, float* out,
+                                int device, void* stream) {
+  return launch<1>(x, 1, p, bits, seed, partial, out, device, stream);
 }

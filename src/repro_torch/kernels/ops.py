@@ -54,6 +54,16 @@ def leaf_key(name: str):
     return tuple(int(s) if s.isdigit() else s for s in name.split("."))
 
 
+def flatten_params(params: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """One client's {name: tensor} params -> (P,) f32, P padded to a
+    CHUNK multiple, in `flatten_params_batched`'s leaf order, so it
+    equals `repro.kernels.ops.flatten_params` of the same weights."""
+    names = sorted(params, key=leaf_key)
+    flat = torch.cat([params[k].reshape(-1).to(torch.float32)
+                      for k in names])
+    return torch.nn.functional.pad(flat, (0, (-flat.shape[0]) % CHUNK))
+
+
 def flatten_params_batched(params: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Stacked {name: (M, ...)} params -> (M, P) f32, P padded to a CHUNK
     multiple, leaves in `jax.tree.leaves` order and JAX layouts, so row i
@@ -113,3 +123,26 @@ def batched_lsh_codes(flat2d: torch.Tensor, seed: int, *, bits: int = 256,
     else:
         sums = ref.lsh_project_sums_batched_ref(flat2d, seed, bits=bits)
     return pack_bits(sums)
+
+
+def lsh_code(params: Dict[str, torch.Tensor], seed: int, *, bits: int = 256,
+             use_kernel: bool = True) -> torch.Tensor:
+    """WPFed Eq. (5): the (W,) packed code of one client's params.
+    `use_kernel` goes through the single-client kernel's wrapper."""
+    from repro_torch.kernels import lsh_projection, ref
+    flat = flatten_params(params)
+    if use_kernel:
+        sums = lsh_projection.lsh_project_sums(flat, seed, bits=bits)
+    else:
+        sums = ref.lsh_project_sums_ref(flat, seed, bits=bits)
+    return pack_bits(sums)
+
+
+def hamming_matrix(codes: torch.Tensor, *,
+                   use_kernel: bool = True) -> torch.Tensor:
+    """WPFed Eq. (6) for all pairs: (M, W) packed codes -> (M, M) int32.
+    No padding: the CUDA kernel takes any M and W."""
+    from repro_torch.kernels import hamming, ref
+    if use_kernel:
+        return hamming.hamming_all_pairs(codes, codes)
+    return ref.hamming_all_pairs_ref(codes, codes)

@@ -18,6 +18,9 @@ from repro_torch.kernels.ops import popcount_u32, rademacher_block
 # Rows of the Rademacher matrix generated per step: bounds the int64
 # hash temporaries at ~BLOCK_P * bits * 8 bytes each.
 BLOCK_P = 65536
+# Rows per step of the Hamming and ANN plain versions: bounds their
+# (rows, N or K, W) XOR temporaries (a few hundred MB at M=65,536).
+BLOCK_ROWS = 1024
 
 
 def lsh_project_sums_batched_ref(x2d: torch.Tensor, seed: int, *,
@@ -37,6 +40,13 @@ def lsh_project_sums_batched_ref(x2d: torch.Tensor, seed: int, *,
     return out
 
 
+def lsh_project_sums_ref(x: torch.Tensor, seed: int, *,
+                         bits: int = 256) -> torch.Tensor:
+    """(P,) f32 -> (bits,) f32: one client's Eq. 5 sums, the (1, P) case
+    of `lsh_project_sums_batched_ref`."""
+    return lsh_project_sums_batched_ref(x[None], seed, bits=bits)[0]
+
+
 @functools.lru_cache(maxsize=16)
 def selection_lut(words: int, bits: int, gamma: float,
                   device=None) -> torch.Tensor:
@@ -53,9 +63,14 @@ def selection_lut(words: int, bits: int, gamma: float,
 
 def hamming_all_pairs_ref(codes_a: torch.Tensor,
                           codes_b: torch.Tensor) -> torch.Tensor:
-    """(M, W) x (N, W) packed codes -> (M, N) int32 Hamming distances."""
-    x = codes_a[:, None, :] ^ codes_b[None, :, :]
-    return popcount_u32(x).sum(-1, dtype=torch.int32)
+    """(M, W) x (N, W) packed codes -> (M, N) int32 Hamming distances,
+    BLOCK_ROWS rows at a time."""
+    out = torch.empty((codes_a.shape[0], codes_b.shape[0]),
+                      dtype=torch.int32, device=codes_a.device)
+    for r0 in range(0, codes_a.shape[0], BLOCK_ROWS):
+        x = codes_a[r0:r0 + BLOCK_ROWS, None, :] ^ codes_b[None, :, :]
+        out[r0:r0 + BLOCK_ROWS] = popcount_u32(x).sum(-1, dtype=torch.int32)
+    return out
 
 
 def _eq8_weights(codes: torch.Tensor, scores: torch.Tensor,
@@ -124,6 +139,51 @@ def fused_select_tiled_ref(codes: torch.Tensor, scores: torch.Tensor,
             run_i = torch.gather(cand_i, 1, order)
         ids[rows], top_w[rows] = run_i, run_w
     return ids.to(torch.int32), top_w
+
+
+def ann_select_ref(codes: torch.Tensor, scores: torch.Tensor,
+                   cand_ids: torch.Tensor, lut: torch.Tensor, *,
+                   num_neighbors: int, use_lsh: bool = True,
+                   use_rank: bool = True, block_m: int = BLOCK_ROWS):
+    """Eq. 6-8 + top-N on (M, K) candidate sets (`core.ann`, sentinel id
+    M in invalid slots): codes (M, W) int32, scores (M,) f32, cand_ids
+    (M, K) int32, lut from `selection_lut` -> (ids (M, N) int32, top_w
+    (M, N) f32). Self and the sentinel weigh -inf; ties break by
+    candidate position (a stable descending sort, as `lax.top_k`);
+    slots with no finite weight get id 0. Rows go `block_m` at a time,
+    so the (rows, K, W) gather stays small. Equal bit for bit to the JAX
+    package's `ann_select_ref` on the same candidates."""
+    m, w = codes.shape
+    nsel = min(num_neighbors, m - 1)
+    dev = codes.device
+    if nsel <= 0:
+        return (torch.zeros((m, 0), dtype=torch.int32, device=dev),
+                torch.zeros((m, 0), dtype=torch.float32, device=dev))
+    codes_pad = torch.cat([codes, codes.new_zeros((1, w))])
+    scores_pad = torch.cat([scores.to(torch.float32),
+                            torch.zeros((1,), device=dev)])
+    ids = torch.empty((m, nsel), dtype=torch.int32, device=dev)
+    top_w = torch.empty((m, nsel), dtype=torch.float32, device=dev)
+    ninf = torch.tensor(-torch.inf, device=dev)
+    for r0 in range(0, m, block_m):
+        r1 = min(r0 + block_m, m)
+        cand = cand_ids[r0:r1].to(torch.int64)
+        if use_rank:
+            wt = scores_pad[cand]
+        else:
+            wt = torch.ones(cand.shape, device=dev)
+        if use_lsh:
+            x = codes[r0:r1, None, :] ^ codes_pad[cand]
+            d = popcount_u32(x).sum(-1, dtype=torch.int32)
+            wt = wt * lut[d.to(torch.int64)]
+        row = torch.arange(r0, r1, device=dev)[:, None]
+        wt = torch.where((cand == row) | (cand >= m), ninf, wt)
+        tw, pos = torch.sort(wt, dim=1, descending=True, stable=True)
+        tw, pos = tw[:, :nsel], pos[:, :nsel]
+        sel = torch.gather(cand, 1, pos)
+        ids[r0:r1] = torch.where(torch.isfinite(tw), sel, 0).to(torch.int32)
+        top_w[r0:r1] = tw
+    return ids, top_w
 
 
 def upper_half_mask(kl_mean: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:

@@ -6,11 +6,13 @@ Counterpart of `repro/launch/fed.py` (`run_federation` and its CLI).
         --dataset aecg --clients 4 --rounds 2
     PYTHONPATH=src python -m repro_torch.launch.fed --dataset mnist \
         --rounds 2 --tiling tiled
+    PYTHONPATH=src python -m repro_torch.launch.fed --dataset mnist \
+        --rounds 2 --backend ann --ann-prefix-bits 10 --ann-probes 8
 
 Rounds run through `core.rounds.run_rounds`; every reselection is
 published to a host `Blockchain`, verified before returning. The
-JAX launcher's attacks, continuous service, sharded dry run and the
-`ann` backend are not ported yet.
+JAX launcher's attacks, continuous service and sharded dry run are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -55,30 +57,41 @@ def run_federation(dataset: str = "mnist", rounds: int = 10,
                    num_clients: int = 0, seed: int = 0, fed: FedConfig = None,
                    backend: str = "auto", ref_mode: str = "personal",
                    tiling: str = "auto", schedule: str = "sync",
-                   reselect_every: int = 0, device=None, log=print):
+                   reselect_every: int = 0, ann_prefix_bits: int = -1,
+                   ann_probes: int = -1, device=None, log=print):
     """Run a federation on `device` (the CUDA device when None; the CPU
     only when asked). `backend` drives both kernel-backed subsystems
-    (selection and exchange) and the LSH projection; `tiling` both
-    tiling regimes. An explicit `fed` wins outright: backend/ref_mode/
-    tiling apply only to the default-constructed config. ref_mode
-    "public" also enables the Eq. 7 duplicate-evidence dedupe. Returns
-    (state, history)."""
+    (selection and exchange) and the LSH projection; "ann" applies to
+    the selection only and leaves the exchange on "auto". `tiling`
+    drives both tiling regimes; `ann_prefix_bits` / `ann_probes` (-1:
+    the FedConfig defaults) the ANN index. An explicit `fed` wins
+    outright: backend/ref_mode/tiling/ann knobs apply only to the
+    default-constructed config. ref_mode "public" also enables the
+    Eq. 7 duplicate-evidence dedupe. Returns (state, history)."""
     dev = resolve_device(device)
     if fed is not None and (backend != "auto" or ref_mode != "personal"
-                            or tiling != "auto"):
-        raise ValueError("pass backend/ref_mode/tiling inside the explicit "
-                         "FedConfig, not alongside it")
+                            or tiling != "auto" or ann_prefix_bits >= 0
+                            or ann_probes >= 0):
+        raise ValueError("pass backend/ref_mode/tiling/ann knobs inside "
+                         "the explicit FedConfig, not alongside it")
     sched = resolve_schedule(schedule, reselect_every)
     ds_fn = DATASETS[dataset]
     ds = ds_fn(seed=seed) if num_clients == 0 else \
         ds_fn(num_clients=num_clients, seed=seed)
     n_opt, alpha, gamma = PAPER_FED_OPTIMA[dataset]
+    defaults = FedConfig()
     fed = fed or FedConfig(num_clients=ds.num_clients, num_neighbors=n_opt,
                            alpha=alpha, gamma=gamma, rounds=rounds,
                            selection_backend=backend,
-                           exchange_backend=backend, ref_mode=ref_mode,
+                           exchange_backend="auto" if backend == "ann"
+                           else backend, ref_mode=ref_mode,
                            selection_tiling=tiling, exchange_tiling=tiling,
-                           dedupe_rankings=recommended_dedupe(ref_mode))
+                           dedupe_rankings=recommended_dedupe(ref_mode),
+                           ann_prefix_bits=ann_prefix_bits
+                           if ann_prefix_bits >= 0
+                           else defaults.ann_prefix_bits,
+                           ann_probes=ann_probes if ann_probes >= 0
+                           else defaults.ann_probes)
     mcfg = MODEL_FOR[dataset]()
     apply_fn = functools.partial(apply_client_model, client_template(mcfg))
     opt = adam(fed.lr)
@@ -104,9 +117,18 @@ def main(argv=None):
     ap.add_argument("--clients", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--backend", default="auto",
-                    choices=["auto", "kernel", "oracle"],
+                    choices=["auto", "kernel", "oracle", "ann"],
                     help="kernel: the CUDA kernels; oracle: their plain "
-                         "PyTorch versions; auto: kernel on a CUDA device")
+                         "PyTorch versions; auto: kernel on a CUDA device "
+                         "(ANN selection past 4096 clients); ann: "
+                         "selection through the LSH-bucket candidate "
+                         "index, exchange on auto")
+    ap.add_argument("--ann-prefix-bits", type=int, default=-1,
+                    help="ANN bucket prefix length (-1: FedConfig default; "
+                         "0: one bucket, the exact selection)")
+    ap.add_argument("--ann-probes", type=int, default=-1,
+                    help="ANN single-bit probes, the recall knob (-1: "
+                         "FedConfig default)")
     ap.add_argument("--ref-mode", default="personal",
                     choices=["personal", "public"])
     ap.add_argument("--tiling", default="auto",
@@ -125,6 +147,8 @@ def main(argv=None):
                                 backend=args.backend, ref_mode=args.ref_mode,
                                 tiling=args.tiling, schedule=args.schedule,
                                 reselect_every=args.reselect_every,
+                                ann_prefix_bits=args.ann_prefix_bits,
+                                ann_probes=args.ann_probes,
                                 device=args.device)
     scalars = [{k: v for k, v in h.items() if not isinstance(v, list)}
                for h in history[-3:]]

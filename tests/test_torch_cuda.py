@@ -9,15 +9,18 @@ it there without the conftest:
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Tolerances as in `chip_smoke.py`: LSH sums within
-1e-5 * (|plain| + ||x_row||_2), code bits equal off |sum| <= 1e-3;
-selection ids and weights equal (one-shot and column-tiled); one-shot
-exchange l_ij and target rtol 1e-5 (atol 1e-5 for target); streamed
-exchange l_ij and target rtol 2e-5, atol 1e-5; masks equal.
+1e-5 * (|plain| + ||x_row||_2), code bits equal off |sum| <= 1e-3, and
+the single-client kernel's sums equal to the batched kernel's row;
+selection ids and weights equal (one-shot, column-tiled and ANN);
+Hamming distances equal; one-shot exchange l_ij and target rtol 1e-5
+(atol 1e-5 for target); streamed exchange l_ij and target rtol 2e-5,
+atol 1e-5; masks equal.
 """
 import pytest
 import torch
 
-from repro_torch.kernels import exchange, lsh_projection, ref, selection
+from repro_torch.kernels import (exchange, hamming, lsh_projection, ref,
+                                 selection)
 
 
 @pytest.fixture
@@ -185,3 +188,125 @@ def test_tiled_kernel_round_matches_tiled_plain_round(cuda):
         assert a["valid_mask"] == b["valid_mask"]
         assert abs(a["mean_loss"] - b["mean_loss"]) <= 1e-4 * abs(
             b["mean_loss"])
+
+
+def _random_codes(g, m, words, device):
+    return torch.randint(-2 ** 31, 2 ** 31 - 1, (m, words), generator=g,
+                         device=device, dtype=torch.int64).to(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,words,n,pb,probes", [
+    (40, 8, 9, 3, 2), (700, 4, 16, 6, 4), (300, 3, 20, 5, 3),
+    (130, 32, 128, 2, 2)])
+def test_ann_selection_kernel_matches_plain(cuda, m, words, n, pb, probes):
+    """The registers path (W = 4, 8), the shared-memory path (W = 3, 32),
+    the largest N, duplicate codes, all-tie and gridded scores."""
+    from repro_torch.core import ann
+    g = _gen(m + 1)
+    codes = _random_codes(g, m, words, cuda)
+    codes[5:9] = codes[4]
+    bits = words * 32
+    lut = ref.selection_lut(words, bits, 1.0, device=cuda)
+    for scores in (torch.zeros(m, device=cuda),
+                   torch.rand(m, generator=g, device=cuda).round(decimals=1)):
+        cand = ann.ann_candidates(codes, scores, seed=m, prefix_bits=pb,
+                                  probes=probes, num_neighbors=n)
+        for flags in ({}, {"use_lsh": False}, {"use_rank": False}):
+            ki, kw = selection.fused_select_ann(
+                codes, scores, cand.ids, bits=bits, gamma=1.0,
+                num_neighbors=n, **flags)
+            pi, pw = ref.ann_select_ref(codes, scores, cand.ids, lut,
+                                        num_neighbors=n, block_m=64, **flags)
+            assert torch.equal(ki, pi) and torch.equal(kw, pw), flags
+
+
+@pytest.mark.cuda
+def test_ann_prefix_zero_equals_the_exact_kernel(cuda):
+    """One bucket of capacity M: the ANN kernel gives the one-shot
+    kernel's ids and weights bit for bit."""
+    from repro_torch.core import ann
+    g = _gen(9)
+    codes = _random_codes(g, 500, 8, cuda)
+    scores = torch.rand(500, generator=g, device=cuda).round(decimals=1)
+    cand = ann.ann_candidates(codes, scores, seed=0, prefix_bits=0,
+                              probes=0, num_neighbors=16)
+    ai, aw = selection.fused_select_ann(codes, scores, cand.ids, bits=256,
+                                        gamma=1.0, num_neighbors=16)
+    oi, ow = selection.fused_select(codes, scores, bits=256, gamma=1.0,
+                                    num_neighbors=16)
+    assert torch.equal(ai, oi) and torch.equal(aw, ow)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,words", [(10, 10, 8), (70, 33, 33),
+                                       (1000, 300, 8), (5, 1, 1)])
+def test_hamming_kernel_matches_plain(cuda, m, n, words):
+    g = _gen(m + n)
+    a = _random_codes(g, m, words, cuda)
+    b = _random_codes(g, n, words, cuda)
+    b[0] = a[0]
+    assert torch.equal(hamming.hamming_all_pairs(a, b),
+                       ref.hamming_all_pairs_ref(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [4096, 8192, 421_888])
+def test_lsh_single_kernel_matches_plain_and_the_batched_row(cuda, p):
+    x = torch.randn((3, p), generator=_gen(p), device=cuda) * 0.05
+    rows = lsh_projection.lsh_project_sums_batched(x, 5, bits=256)
+    for i in range(3):
+        k = lsh_projection.lsh_project_sums(x[i].contiguous(), 5, bits=256)
+        pl = ref.lsh_project_sums_ref(x[i], 5, bits=256)
+        err = (k - pl).abs()
+        assert bool((err <= 1e-5 * (pl.abs() + x[i].norm())).all())
+        off = pl.abs() > 1e-3
+        assert torch.equal((k > 0)[off], (pl > 0)[off])
+        assert torch.equal(k, rows[i])
+
+
+@pytest.mark.cuda
+def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    g = _gen(1)
+    codes = _random_codes(g, 300, 8, cuda)
+    scores = torch.zeros(300, device=cuda)
+    cand = torch.zeros((300, 200), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="N <= 128"):
+        selection.fused_select_ann(codes, scores, cand, bits=256, gamma=1.0,
+                                   num_neighbors=150)
+    wide = _random_codes(g, 300, 33, cuda)
+    with pytest.raises(ValueError, match="at most 1024 bits"):
+        selection.fused_select_ann(wide, scores, cand, bits=33 * 32,
+                                   gamma=1.0, num_neighbors=4)
+    with pytest.raises(ValueError, match="int32"):
+        selection.fused_select_ann(codes, scores, cand.long(), bits=256,
+                                   gamma=1.0, num_neighbors=4)
+    with pytest.raises(ValueError, match="int32"):
+        hamming.hamming_all_pairs(codes.long(), codes.long())
+    with pytest.raises(ValueError, match=r"\(N, W\)"):
+        hamming.hamming_all_pairs(codes, wide)
+    with pytest.raises(ValueError, match="1-D"):
+        lsh_projection.lsh_project_sums(torch.zeros((2, 2048), device=cuda),
+                                        0)
+    with pytest.raises(ValueError, match="P %"):
+        lsh_projection.lsh_project_sums(torch.zeros(1000, device=cuda), 0)
+
+
+@pytest.mark.cuda
+def test_ann_round_launches_the_ann_kernel(cuda):
+    """Two aecg rounds with backend="ann": one ANN selection per round,
+    no exact selection, the same ids on a second run."""
+    from repro_torch.launch.fed import run_federation
+    runs = []
+    for _ in range(2):
+        selection.ANN_KERNEL.launches = selection.KERNEL.launches = 0
+        _, hist = run_federation("aecg", rounds=2, num_clients=6,
+                                 backend="ann", ann_prefix_bits=2,
+                                 ann_probes=1, device=cuda, log=None)
+        assert selection.ANN_KERNEL.launches == 2
+        assert selection.KERNEL.launches == 0
+        runs.append([h["neighbor_ids"] for h in hist])
+        for h in hist:
+            assert all(i not in row for i, row in
+                       enumerate(h["neighbor_ids"]))
+    assert runs[0] == runs[1]

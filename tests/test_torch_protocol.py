@@ -43,7 +43,8 @@ import repro_torch.configs.paper_models as pcfg
 import repro_torch.data.federated as pdata
 from repro_torch.core import chain, ranking, rounds, verify
 from repro_torch.core import protocol as P
-from repro_torch.core.backends import resolve, resolve_tiling
+from repro_torch.core.backends import (resolve, resolve_selection,
+                                      resolve_tiling)
 from repro_torch.kernels import ops
 from repro_torch.launch.fed import run_federation
 from repro_torch.models.client import apply_client_model, client_template
@@ -245,15 +246,22 @@ def _close(a, b, rtol=1e-4, atol=1e-6):
 
 
 @pytest.mark.parametrize("ref_mode", ["personal", "public"])
-@pytest.mark.parametrize("tiling", ["oneshot", "tiled"])
+@pytest.mark.parametrize("tiling", ["oneshot", "tiled", "ann"])
 def test_round_matches_jax(tiny_fed, ref_mode, tiling):
     """One round on each side. With "tiled" the JAX CPU oracle runs
     `fused_select_ref` + `streamed_exchange_ref`, the port
-    `fused_select_tiled_ref` + its `streamed_exchange_ref`."""
+    `fused_select_tiled_ref` + its `streamed_exchange_ref`. "ann" selects
+    through the ANN path on both sides (2 prefix bits, 1 probe: each
+    client probes 2 of 4 buckets, so candidate sets are partial), seeded
+    by the round index, with the exchange on "auto"."""
+    if tiling == "ann":
+        path = dict(selection_backend="ann", ann_prefix_bits=2,
+                    ann_probes=1)
+    else:
+        path = dict(selection_tiling=tiling, exchange_tiling=tiling)
     jfed = dataclasses.replace(
         tiny_fed["fed"], ref_mode=ref_mode,
-        dedupe_rankings=jcfg.recommended_dedupe(ref_mode),
-        selection_tiling=tiling, exchange_tiling=tiling)
+        dedupe_rankings=jcfg.recommended_dedupe(ref_mode), **path)
     pfed = pcfg.FedConfig(**dataclasses.asdict(jfed))
     jmc = tiny_fed["mcfg"]
     pmc = pcfg.ClientModelConfig(**dataclasses.asdict(jmc))
@@ -400,8 +408,10 @@ def test_backend_resolution():
         resolve("kernel", "cpu")
     with pytest.raises(ValueError, match=r"unknown backend: 'tpu' \(expected"):
         resolve("tpu", "cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(ValueError, match=r"unknown backend: 'ann' \(expected"):
         resolve("ann", "cpu")
+    assert resolve_selection("ann", 10, exact_flops=1.0, ann_flops=1.0,
+                             device="cpu") == "ann"
     assert resolve_tiling("auto", 0) == resolve_tiling("oneshot", 0) \
         == "oneshot"
     assert resolve_tiling("tiled", 0) == "tiled"
