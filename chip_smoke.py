@@ -20,8 +20,13 @@
    against both plain versions, up to a 100,352-class vocabulary; the
    ANN selection runs on `ann_candidates` at the defaults (prefix 10,
    probes 8): the main shape, all ties, clustered codes at M = 4096 and
-   65,536, and with prefix_bits=0 against the one-shot kernel. One JSON
-   line per kernel and shape.
+   65,536, and with prefix_bits=0 against the one-shot kernel; the
+   flash-attention kernel at the serving path's shape (N = 4 * 24 heads,
+   Sq = Sk = 2048, dh = 128, f32, causal), at the JAX kernel's contract
+   points, bidirectional with Sq != Sk, at lengths that are no tile
+   multiple, in bf16, at dh = 256 and on the model's GQA layout, timed
+   beside torch's scaled_dot_product_attention (`library_ms`, never
+   called by the port). One JSON line per kernel and shape.
 3. Drives the main paths, every kernel's launch count set to 0 just
    before each and read just after: `run_federation("mnist", rounds=2,
    backend="kernel")` on the card, the same with `tiling="tiled"`, and
@@ -42,7 +47,19 @@
    profiled runs (one-shot, tiled, ANN) break round 1 down into its
    phases' host time, the device's busy time and the kernels that took
    it (`profile_round`).
-4. Prints {"kernels": [...]} for every ported kernel, then, last,
+4. Path 4, LM serving: `serve("minitron-4b", reduced=False, batch=4,
+   prompt_len=2048, max_new=32)` on the card (Minitron-4B at its
+   published widths, 32 layers, random weights from seed 0), launch
+   counts set to 0 just before: the flash-attention kernel must launch
+   exactly 32 times (once per layer of the prefill, never in decode) and
+   no other kernel. The same call on the same weights with the "naive"
+   attention (no launch) must give prefill logits within rtol 1e-4, atol
+   1e-4, and the same tokens, except from a step where the naive run's
+   two largest logits lie within 1e-3. Prints the prefill seconds, the
+   decode tokens/s, the peak device memory, the kernel's device time in
+   a profiled prefill and a profile of three decode steps (host ms,
+   device busy ms, idle share, launches, costliest kernels).
+5. Prints {"kernels": [...]} for every ported kernel, then, last,
    {"ok": true, "device": {...}}.
 
 Exits non-zero, before printing any result, without a CUDA device or
@@ -54,7 +71,9 @@ distances equal; unfused selection ids equal to the fused kernel's
 except where two Eq. 8 weights are within 1 ulp; one-shot exchange l_ij
 and target within rtol 1e-5 (atol 1e-5 for target entries near 0);
 streamed exchange l_ij and target within rtol 2e-5, atol 1e-5 of both
-plain versions; valid and has_target equal.
+plain versions; valid and has_target equal; flash attention max abs
+error 2e-5 in f32 and 2e-2 in bf16 on unit-normal inputs (the JAX
+kernel's test bound).
 """
 from __future__ import annotations
 
@@ -100,20 +119,11 @@ def device_ms(fn, names=(), iters: int = 20):
     over names of the median duration of the kernels whose name contains
     it, which a dropped activity record does not bias (in one H100 run
     the summed records of 20 calls of a 15 ms kernel came to a third of
-    the CUDA-event time). Without: all device activity of
-    the `iters` calls, summed, per call. None when the profiler records
-    no such activity."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    the CUDA-event time). Without: all device activity of the `iters`
+    calls, summed, per call. None when the profiler records no such
+    activity."""
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    dev = [e for e in prof.events() if is_device_work(e, DeviceType)]
+    dev = profiled_device_events(fn, iters)
     if names:
         per_name = [[e.time_range.elapsed_us() for e in dev if n in e.name]
                     for n in names]
@@ -123,6 +133,38 @@ def device_ms(fn, names=(), iters: int = 20):
     if not dev:
         return None
     return sum(e.time_range.elapsed_us() for e in dev) / iters / 1e3
+
+
+def library_device_ms(fn, iters: int = 20):
+    """Device time per call of one library call in ms: for each kernel
+    name it launches, the median duration times the launches per call
+    (rounded, at least 1). A library call launches a few fixed kernels,
+    so medians keep dropped activity records from biasing the time (in
+    one H100 run the profiler kept half of SDPA's records). None when
+    the profiler records no device activity."""
+    from collections import defaultdict
+    fn()
+    per_name = defaultdict(list)
+    for e in profiled_device_events(fn, iters):
+        per_name[e.name].append(e.time_range.elapsed_us())
+    if not per_name:
+        return None
+    return sum(statistics.median(d) * max(1, round(len(d) / iters))
+               for d in per_name.values()) / 1e3
+
+
+def profiled_device_events(fn, iters: int):
+    """The device activity of `iters` calls of fn() under torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.events() if is_device_work(e, DeviceType)]
 
 
 def is_device_work(e, DeviceType) -> bool:
@@ -138,9 +180,9 @@ def timings(kernel_fn, kernel_names, plain_fn, library_fn=None,
     """kernel_ms: the kernel's own device time per call (CUDA events
     around the wrapper when the profiler sees no device activity);
     call_ms: CUDA events around one wrapper call, host overhead and
-    input casts included; plain_ms / library_ms: all device time per
-    call of the plain version / the library call, with their
-    event-timed call_ms."""
+    input casts included; plain_ms: all device time per call of the
+    plain version; library_ms: the library call's device time by kernel
+    name (`library_device_ms`); each with its event-timed call_ms."""
     out = {"call_ms": time_ms(kernel_fn),
            "plain_call_ms": time_ms(plain_fn, warmup=min(3, plain_iters),
                                     iters=plain_iters)}
@@ -150,7 +192,8 @@ def timings(kernel_fn, kernel_names, plain_fn, library_fn=None,
     out["library_ms"] = None
     if library_fn is not None:
         out["library_call_ms"] = time_ms(library_fn)
-        out["library_ms"] = device_ms(library_fn) or out["library_call_ms"]
+        out["library_ms"] = (library_device_ms(library_fn)
+                             or out["library_call_ms"])
     return out
 
 
@@ -496,6 +539,195 @@ def check_hamming(torch, m, bits, gen):
                 launches=hamming.KERNEL.launches - n0)
 
 
+def attention_pairs(sq: int, sk: int, causal: bool) -> int:
+    """(query, key) pairs the attention must score: all of them, or with
+    the top-left causal mask sum_i min(i + 1, Sk) (S(S+1)/2 at Sq = Sk)."""
+    if not causal:
+        return sq * sk
+    full = min(sq, sk)
+    return full * (full + 1) // 2 + (sq - full) * sk
+
+
+def check_flash(torch, n, sq, sk, dh, causal, dtype, gen, heads=None):
+    """The flash-attention kernel against its plain version on unit-normal
+    (N, S, dh) inputs, or with `heads` = (H, KV) on the model's (B, S, H,
+    dh) / (B, S, KV, dh) layout through `ops.gqa_flash_attention` (N = B
+    then). `library_ms`: torch's scaled_dot_product_attention on the same
+    tensors, as a (1, N, S, dh) view (for the GQA layout heads moved next
+    to the batch, KV heads repeated); `library_max_abs_err` its distance
+    from the plain version. Bound: q, k, v and out once;
+    4 * N * H * pairs * dh f32 operations."""
+    from repro_torch.kernels import flash_attention, ops, ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if heads is None:
+        q, k, v = (torch.randn((n, s, dh), generator=gen, device="cuda")
+                   .to(dtype) for s in (sq, sk, sk))
+        call = lambda: flash_attention.flash_attention(  # noqa: E731
+            q, k, v, causal=causal)
+        plain = lambda: ref.flash_attention_ref(          # noqa: E731
+            q, k, v, causal=causal)
+        # the (1, N, S, dh) view: on 3-D tensors SDPA takes its math path
+        lib = lambda: sdpa(q[None], k[None], v[None],     # noqa: E731
+                           is_causal=causal)[0]
+        h, kvh = 1, 1
+    else:
+        h, kvh = heads
+        q = torch.randn((n, sq, h, dh), generator=gen, device="cuda")
+        k, v = (torch.randn((n, sk, kvh, dh), generator=gen, device="cuda")
+                for _ in range(2))
+        q, k, v = (t.to(dtype) for t in (q, k, v))
+        call = lambda: ops.gqa_flash_attention(           # noqa: E731
+            q, k, v, causal=causal)
+        plain = lambda: ops.gqa_flash_attention(          # noqa: E731
+            q, k, v, causal=causal, use_kernel=False)
+        qh = q.movedim(2, 1)
+        kh, vh = (t.movedim(2, 1).repeat_interleave(h // kvh, dim=1)
+                  for t in (k, v))
+        lib = lambda: sdpa(                               # noqa: E731
+            qh, kh, vh, is_causal=causal).movedim(1, 2)
+    o, pl, lo = call(), plain(), lib()
+    torch.cuda.synchronize()
+    err = (o.float() - pl.float()).abs().max().item()
+    lib_err = (lo.float() - pl.float()).abs().max().item()
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    if not err < tol:
+        raise AssertionError(f"flash attention disagrees at "
+                             f"{(n, sq, sk, dh, causal, dtype, heads)}: "
+                             f"max abs err {err}")
+    del o, pl, lo
+    n0 = flash_attention.KERNEL.launches
+    t = timings(call, ("flash_fwd_kernel",), plain, library_fn=lib)
+    size = q.element_size()
+    bms, by = bound(size * (2.0 * q.numel() + 2.0 * k.numel()),
+                    4.0 * n * h * attention_pairs(sq, sk, causal) * dh
+                    / F32_FLOP_PER_S)
+    return dict(**t, max_abs_err=err, library_max_abs_err=lib_err,
+                bound_ms=bms, bound_by=by,
+                launches=flash_attention.KERNEL.launches - n0)
+
+
+def profile_steps(torch, fn, iters: int = 3):
+    """fn() `iters` times under torch.profiler after one warm-up call:
+    host ms per call (device synchronised), device busy ms per call,
+    idle share, device launches per call and the five costliest device
+    kernels (ms per call)."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / iters
+    by_name = Counter()
+    dev = [e for e in prof.events() if is_device_work(e, DeviceType)]
+    for e in dev:
+        by_name[e.name[:80]] += e.time_range.elapsed_us() / 1e3 / iters
+    busy = sum(by_name.values())
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / wall,
+            "device_launches": len(dev) / iters,
+            "top_device_ms": by_name.most_common(5)}
+
+
+def serve_path(torch, kernels):
+    """Path 4: Minitron-4B served at full width on the card, through the
+    flash-attention kernel and then, on the same weights, through the
+    naive attention; returns the kernel run's launch counts."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import attention
+    from repro_torch.train import make_prefill_step, make_serve_step
+    arch, kw = "minitron-4b", dict(reduced=False, batch=4, prompt_len=2048,
+                                   max_new=32, seed=0, device="cuda")
+    cfg = get_config(arch)
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    res = serve(arch, **kw)
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    emit({"phase": "main_path_launches", "run": "serve", **launches})
+    if launches["flash_attention"] != cfg.num_layers or \
+            any(v for name, v in launches.items()
+                if name != "flash_attention"):
+        raise AssertionError(f"the serving path must launch flash_attention "
+                             f"{cfg.num_layers} times and nothing else: "
+                             f"{launches}")
+    logits, gen = res["logits"], res["generated"]
+    if not (bool(logits.isfinite().all()) and gen.shape == (4, 32)
+            and logits.shape == (32, 4, cfg.vocab_size)):
+        raise AssertionError("serve gave non-finite logits or wrong shapes")
+
+    for k in kernels.values():
+        k.launches = 0
+    attention.set_attn_impl("naive")
+    try:
+        naive = serve(arch, params=res["params"], **kw)
+    finally:
+        attention.set_attn_impl("auto")
+    if kernels["flash_attention"].launches != 0:
+        raise AssertionError("the naive run launched the kernel")
+    lg_err = (logits[0] - naive["logits"][0]).abs().max().item()
+    torch.testing.assert_close(logits[0], naive["logits"][0], rtol=1e-4,
+                               atol=1e-4)
+    top2 = naive["logits"].topk(2, dim=-1).values
+    near = (top2[..., 0] - top2[..., 1] <= 1e-3).any(dim=1)   # per step
+    differ = (gen != naive["generated"]).any(axis=0)
+    first_near = int(near.nonzero()[0]) if bool(near.any()) else None
+    first_diff = int(differ.nonzero()[0][0]) if differ.any() else None
+    if first_diff is not None and (first_near is None
+                                   or first_diff < first_near):
+        raise AssertionError(f"served tokens differ from the naive run at "
+                             f"step {first_diff} (first near-tie: "
+                             f"{first_near})")
+
+    # the kernel's device time in one profiled prefill, then decode steps
+    prompts = {"tokens": torch.as_tensor(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (4, 2048)), device="cuda")}
+    step = make_prefill_step(cfg, cache_len=2048 + 32)
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        _, cache = step(res["params"], prompts)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if is_device_work(e, DeviceType)]
+    flash = [e.time_range.elapsed_us() / 1e3 for e in dev
+             if "flash_fwd_kernel" in e.name]
+    serve_step = make_serve_step(cfg)
+    tok = torch.as_tensor(gen[:, 0], device="cuda")
+    with torch.no_grad():
+        decode = profile_steps(torch, lambda: serve_step(
+            res["params"], cache, tok, 2048))
+    emit({"phase": "serve", "arch": arch, "num_layers": cfg.num_layers,
+          "d_model": cfg.d_model, "batch": 4, "prompt_len": 2048,
+          "max_new": 32, "prefill_s": res["prefill_s"],
+          "decode_tok_per_s": res["decode_tok_per_s"],
+          "naive_prefill_s": naive["prefill_s"],
+          "naive_decode_tok_per_s": naive["decode_tok_per_s"],
+          "peak_memory_bytes": peak,
+          "prefill_logits_max_abs_diff_vs_naive": lg_err,
+          "tokens_equal_to_naive": first_diff is None,
+          "first_differing_step": first_diff,
+          "first_naive_near_tie_step": first_near,
+          "flash_device_ms_in_prefill": sum(flash),
+          "flash_launches_in_profile": len(flash),
+          "prefill_device_ms": sum(e.time_range.elapsed_us() for e in dev)
+          / 1e3,
+          "decode_step_profile": decode,
+          "sample": gen[0][:8].tolist()})
+    return launches
+
+
 def profile_round(run_federation, names, tiling: str = "auto",
                   backend: str = "kernel", round_idx: int = 1):
     """Profile an mnist federation under `backend` ("kernel" or "ann")
@@ -777,8 +1009,8 @@ def main() -> int:
     print(smi, flush=True)
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.device import resolve_device
-    from repro_torch.kernels import (build, exchange, hamming, lsh_projection,
-                                     selection)
+    from repro_torch.kernels import (build, exchange, flash_attention,
+                                     hamming, lsh_projection, selection)
     from repro_torch.launch.fed import run_federation
 
     resolve_device("cuda")               # strict f32: TF32 off
@@ -788,7 +1020,8 @@ def main() -> int:
                "exchange_streamed": exchange.STREAMED_KERNEL,
                "selection_ann": selection.ANN_KERNEL,
                "lsh_single": lsh_projection.SINGLE_KERNEL,
-               "hamming": hamming.KERNEL}
+               "hamming": hamming.KERNEL,
+               "flash_attention": flash_attention.KERNEL}
     t0 = time.perf_counter()
     logs = build.build_all(kernels.values())
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -861,6 +1094,22 @@ def main() -> int:
         ("hamming", dict(m=m, bits=256), m == 10,
          lambda m=m: check_hamming(torch, m, 256, gen))
         for m in (10, 1024, 16_384)
+    ] + [
+        ("flash_attention", dict(n=n, sq=sq, sk=sk, dh=dh, causal=causal,
+                                 dtype=str(dt)[6:], **extra),
+         extra == {} and (n, sq, dh, dt) == (96, 2048, 128, torch.float32),
+         lambda n=n, sq=sq, sk=sk, dh=dh, causal=causal, dt=dt, extra=extra:
+         check_flash(torch, n, sq, sk, dh, causal, dt, gen, **extra))
+        for n, sq, sk, dh, causal, dt, extra in (
+            (96, 2048, 2048, 128, True, torch.float32, {}),
+            (2, 512, 512, 128, True, torch.float32, {}),
+            (1, 1024, 512, 64, True, torch.float32, {}),
+            (2, 256, 512, 128, False, torch.float32, {}),
+            (3, 1000, 1000, 128, True, torch.float32, {}),
+            (2, 512, 512, 128, True, torch.bfloat16, {}),
+            (2, 512, 512, 256, True, torch.float32, {}),
+            (4, 2048, 2048, 128, True, torch.float32,
+             {"heads": (24, 8)}))
     ]
     for name, shape, is_main, run in checks:
         res = run()
@@ -910,7 +1159,11 @@ def main() -> int:
         emit({"phase": "profile", **profile_round(
             run_federation, names, tiling=tiling, backend=backend)})
 
-    # 4. every ported kernel
+    # 4. LM serving: Minitron-4B at full width, prefill + greedy decode
+    launches["flash_attention"] = serve_path(torch, kernels)[
+        "flash_attention"]
+
+    # 5. every ported kernel
     meta = {
         "lsh_projection": ("src/repro_torch/kernels/csrc/lsh_projection.cu",
                            "src/repro/kernels/lsh_projection.py:134"),
@@ -929,6 +1182,8 @@ def main() -> int:
                        "src/repro/kernels/lsh_projection.py:92"),
         "hamming": ("src/repro_torch/kernels/csrc/hamming.cu",
                     "src/repro/kernels/hamming.py:52"),
+        "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:90"),
     }
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": meta[name][0],

@@ -94,9 +94,11 @@ fused_exchange_kernel(const float* __restrict__ own,
     for (int cc = lane; cc < c; cc += 32) s += expf(x[cc] - mx);
     const float ls = logf(warp_sum(s));
     if (lane == 0) {
+      // as jnp.take_along_axis in fill mode: [-c, 0) wraps, any other
+      // label outside [0, c) reads NaN (and so does that client's l_ij)
       int label = y[(size_t)i * r + rr];
-      label = label < 0 ? 0 : (label >= c ? c - 1 : label);  // stay in row
-      nll[row] = -((x[label] - mx) - ls);
+      if (label < 0) label += c;
+      nll[row] = (label >= 0 && label < c) ? -((x[label] - mx) - ls) : NAN;
     }
     if (lsh_verification) {
       const float* o = own_i + (size_t)rr * c;

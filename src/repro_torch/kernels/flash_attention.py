@@ -1,0 +1,102 @@
+"""Flash-attention forward (online softmax): wrapper of the CUDA kernel.
+
+Replaces the TPU kernel `repro/kernels/flash_attention.py:flash_attention`
+(`_flash_kernel`). The kernel (`csrc/flash_attention.cu`) runs one block
+per (head, tile of query rows), stages the query tile and one K/V tile at
+a time in shared memory and keeps the scores and the running max and sum
+on chip, so only q, k, v and the output touch device memory. It computes
+exactly `ref.flash_attention_ref`: f32 arithmetic on f32 or bf16 inputs,
+scale dh**-0.5 when 0 is passed, the causal mask aligned top-left with
+-1e30 for a masked score, out = acc / max(l, 1e-30) in the input dtype.
+It takes any Sq and Sk and dh <= 256. Its bound on the H100 is the
+4 * N * Sq * Sk * dh f32 operations (halved when causal with Sq = Sk).
+
+`flash_attention` takes the TPU kernel's (N, S, dh) layout;
+`gqa_attention` takes the model's (B, S, H, dh) queries and (B, S, KV, dh)
+keys and values and reads KV head h // (H // KV) for query head h through
+strides, without materialising the repeat. Both take the plain version
+for CPU tensors only; for CUDA tensors they launch the kernel or raise.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.build import CudaKernel
+
+KERNEL = CudaKernel(
+    "flash_attention", "flash_attention.cu", "flash_attention_fwd",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 12
+    + [ctypes.c_float, ctypes.c_int])
+MAX_HEAD_DIM = 256
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def plain_gqa_attention(q, k, v, causal, scale):
+    """`gqa_attention` through the plain version, as the JAX wrapper maps
+    it onto the (N, S, dh) layout: KV heads repeated to H, heads moved
+    next to the batch."""
+    b, sq, h, dh = q.shape
+    g = h // k.shape[2]
+    qk = q.movedim(2, 1).reshape(b * h, sq, dh)
+    kx = k.movedim(2, 1).repeat_interleave(g, dim=1).reshape(b * h, -1, dh)
+    vx = v.movedim(2, 1).repeat_interleave(g, dim=1).reshape(b * h, -1, dh)
+    o = ref.flash_attention_ref(qk, kx, vx, causal=causal, scale=scale)
+    return o.reshape(b, h, sq, dh).movedim(1, 2)
+
+
+def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, scale: float = 0.0) -> torch.Tensor:
+    """q (B, Sq, H, dh), k/v (B, Sk, KV, dh), H a multiple of KV ->
+    (B, Sq, H, dh) in q's dtype."""
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"q, k and v must be on one device, got "
+                         f"{q.device} / {k.device} / {v.device}")
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape or \
+            k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3] or \
+            k.shape[2] == 0 or q.shape[2] % k.shape[2]:
+        raise ValueError(f"q must be (B, Sq, H, dh) and k, v (B, Sk, KV, dh) "
+                         f"with H a multiple of KV, got {tuple(q.shape)} / "
+                         f"{tuple(k.shape)} / {tuple(v.shape)}")
+    if q.device.type == "cpu":
+        return plain_gqa_attention(q, k, v, causal, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    b, sq, h, dh = q.shape
+    kvh, sk = k.shape[2], k.shape[1]
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q, k, v must all be float32 or all bfloat16, got "
+                         f"{q.dtype} / {k.dtype} / {v.dtype}")
+    if dh > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {dh} exceeds the kernel's "
+                         f"{MAX_HEAD_DIM}")
+    out = torch.empty((b, sq, h, dh), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    if sk == 0:
+        return out.zero_()
+    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    scale = scale or dh ** -0.5
+    KERNEL.launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  out.data_ptr(), int(q.dtype == torch.bfloat16), b, h, kvh,
+                  sq, sk, dh, *q.stride()[:3], *k.stride()[:3],
+                  *v.stride()[:3], *out.stride()[:3], float(scale),
+                  int(causal))
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, scale: float = 0.0) -> torch.Tensor:
+    """q (N, Sq, dh), k/v (N, Sk, dh) -> (N, Sq, dh) in q's dtype: the
+    TPU kernel's layout, one head per row of N."""
+    if q.ndim != 3 or k.ndim != 3 or v.ndim != 3:
+        raise ValueError(f"q must be (N, Sq, dh) and k, v (N, Sk, dh), got "
+                         f"{tuple(q.shape)} / {tuple(k.shape)} / "
+                         f"{tuple(v.shape)}")
+    if q.device.type == "cpu" and k.device == q.device \
+            and v.device == q.device:
+        return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
+    return gqa_attention(q[:, :, None], k[:, :, None], v[:, :, None],
+                         causal=causal, scale=scale)[:, :, 0]

@@ -146,3 +146,18 @@ def hamming_matrix(codes: torch.Tensor, *,
     if use_kernel:
         return hamming.hamming_all_pairs(codes, codes)
     return ref.hamming_all_pairs_ref(codes, codes)
+
+
+def gqa_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True,
+                        use_kernel: bool = True) -> torch.Tensor:
+    """GQA attention: q (B, Sq, H, dh), k/v (B, Sk, KV, dh) ->
+    (B, Sq, H, dh); query head h reads KV head h // (H // KV), as the
+    JAX wrapper's `jnp.repeat` does. `use_kernel` goes through the
+    flash-attention wrapper (the CUDA kernel on CUDA tensors, reading
+    the KV heads through strides); otherwise the plain version runs on
+    the repeated heads."""
+    from repro_torch.kernels import flash_attention
+    if use_kernel:
+        return flash_attention.gqa_attention(q, k, v, causal=causal)
+    return flash_attention.plain_gqa_attention(q, k, v, causal, 0.0)

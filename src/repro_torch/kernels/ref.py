@@ -4,8 +4,8 @@ Counterpart of `repro/kernels/ref.py`. Each function computes what its
 CUDA kernel computes, with ordinary tensor operations. The CPU tests
 hold these against the JAX oracles; `chip_smoke.py` holds each CUDA
 kernel against its plain version on the card; the wrappers in
-`kernels/{lsh_projection,selection,exchange}.py` call them for CPU
-tensors only.
+`kernels/{lsh_projection,selection,exchange,hamming,flash_attention}.py`
+call them for CPU tensors only.
 """
 from __future__ import annotations
 
@@ -202,6 +202,17 @@ def upper_half_mask(kl_mean: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
     return (rank_of < keep) & sel
 
 
+def wrap_labels(y_ref: torch.Tensor, c: int):
+    """Labels as the JAX package's `jnp.take_along_axis` reads them (fill
+    mode): one in [-C, 0) wraps to y + C; any other outside [0, C) reads
+    NaN. Returns (labels in [0, C) as int64, the (M, R) mask of labels
+    that read NaN)."""
+    y = y_ref.to(torch.int64)
+    y = torch.where(y < 0, y + c, y)
+    bad = (y < 0) | (y >= c)
+    return torch.where(bad, 0, y), bad
+
+
 def all_in_one_exchange_ref(own_logits: torch.Tensor,
                             neighbor_logits: torch.Tensor,
                             y_ref: torch.Tensor, sel_mask: torch.Tensor, *,
@@ -209,14 +220,18 @@ def all_in_one_exchange_ref(own_logits: torch.Tensor,
     """WPFed Eq. 3 + §3.5 + the distillation-target mean over one shared
     neighbour log-softmax. own (M, R, C) f32, neighbour (M, N, R, C) f32,
     y_ref (M, R) int, sel_mask (M, N) bool -> (l_ij (M, N) f32,
-    valid (M, N) bool, target (M, R, C) f32, has_target (M,) bool)."""
+    valid (M, N) bool, target (M, R, C) f32, has_target (M,) bool).
+    A label outside [0, C) reads as `wrap_labels` says: a client with
+    one that reads NaN gets NaN l_ij for every neighbour."""
     own = own_logits.to(torch.float32)
     nb = neighbor_logits.to(torch.float32)
     sel = sel_mask.to(torch.bool)
     logp_nb = torch.log_softmax(nb, dim=-1)
-    y = y_ref.to(torch.int64)[:, None, :, None].expand(
-        -1, nb.shape[1], -1, 1)
-    l_ij = (-torch.gather(logp_nb, -1, y)[..., 0]).mean(-1)
+    y, bad = wrap_labels(y_ref, nb.shape[-1])
+    y = y[:, None, :, None].expand(-1, nb.shape[1], -1, 1)
+    nll = -torch.gather(logp_nb, -1, y)[..., 0]
+    nll = torch.where(bad[:, None, :], torch.nan, nll)
+    l_ij = nll.mean(-1)
     if lsh_verification:
         logp_own = torch.log_softmax(own, dim=-1)
         kl = (logp_own.exp()[:, None] * (logp_own[:, None] - logp_nb)).sum(-1)
@@ -309,3 +324,28 @@ def streamed_exchange_ref(own_logits: torch.Tensor,
     target = (torch.einsum("mn,mnrc->mrc", w, nb_p)
               / denom[:, None, None])[:, :r, :c]
     return l_ij, valid, target, w.sum(-1) > 0
+
+
+NEG_INF = -1e30     # the masked score of the TPU kernel and the model
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True,
+                        scale: float = 0.0) -> torch.Tensor:
+    """Naive softmax attention, the function `flash_attention` computes:
+    q (N, Sq, dh), k/v (N, Sk, dh) f32 or bf16 -> (N, Sq, dh) in q's
+    dtype, computed in f32. `scale` 0 means dh**-0.5; the causal mask is
+    aligned top-left (query i sees keys j <= i, both counted from 0) and
+    a masked score is -1e30, as in `repro/kernels/ref.py`."""
+    dh = q.shape[-1]
+    scale = scale or dh ** -0.5
+    s = torch.einsum("nqd,nkd->nqk", q.to(torch.float32),
+                     k.to(torch.float32)) * scale
+    if causal:
+        sq, sk = s.shape[-2], s.shape[-1]
+        i = torch.arange(sq, device=s.device)[:, None]
+        j = torch.arange(sk, device=s.device)[None, :]
+        s = s.masked_fill(i < j, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("nqk,nkd->nqd", p,
+                        v.to(torch.float32)).to(q.dtype)

@@ -1,2 +1,11 @@
-"""Client models in PyTorch, with the JAX package's parameter names
-and layouts."""
+"""Models in PyTorch, with the JAX package's parameter names and
+layouts: the paper's client models (`client`) and the transformer zoo's
+dense families (`transformer`)."""
+from repro_torch.models.transformer import (  # noqa: F401
+    decode_step,
+    forward,
+    init_cache,
+    init_params,
+    param_shapes,
+    prefill,
+)

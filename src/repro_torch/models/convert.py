@@ -1,10 +1,11 @@
-"""Carry a client's weights across from the JAX package.
+"""Carry weights across from the JAX package.
 
 `params_from_jax(cfg, tree)` turns a JAX client pytree of numpy arrays
 (dicts and lists, `None` leaves as in the TCN's `res`), one client's or
 stacked (M, ...), into the port's {name: tensor} params, so that both
-packages compute on the same weights. The port never imports JAX: the
-caller converts its arrays to numpy first.
+packages compute on the same weights. `lm_params_from_jax(cfg, tree)`
+does the same for the transformer zoo's `init_params` pytree. The port
+never imports JAX: the caller converts its arrays to numpy first.
 """
 from __future__ import annotations
 
@@ -13,8 +14,10 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.paper_models import ClientModelConfig
 from repro_torch.models.client import client_template
+from repro_torch.models.transformer import param_shapes
 
 
 def _walk(tree, prefix, out):
@@ -48,3 +51,44 @@ def params_from_jax(cfg: ClientModelConfig, tree,
                              f"{shape}")
         out[name] = torch.from_numpy(np.array(arr, np.float32)).to(device)
     return out
+
+
+def lm_params_from_jax(cfg: ModelConfig, tree, device=None):
+    """The JAX `init_params(cfg, key)` pytree, as numpy arrays -> the
+    port's transformer params (same nesting: `embed`, `layers` as a tuple
+    over pattern positions stacked on (reps,), `tail`, `final_norm`; the
+    same (in, out) layouts, so nothing is transposed). Every name and
+    shape is checked against `param_shapes(cfg)`; a mismatch raises."""
+    flat: Dict[str, np.ndarray] = {}
+    _walk(tree, "", flat)
+    want: Dict[str, tuple] = {}
+    _walk_shapes(param_shapes(cfg), "", want)
+    if set(flat) != set(want):
+        raise ValueError(f"parameter names differ: JAX-only "
+                         f"{sorted(set(flat) - set(want))}, port-only "
+                         f"{sorted(set(want) - set(flat))}")
+    for name, arr in flat.items():
+        if tuple(arr.shape) != want[name]:
+            raise ValueError(f"{name}: shape {tuple(arr.shape)}, the port "
+                             f"expects {want[name]}")
+
+    def build(shapes, prefix):
+        if isinstance(shapes, torch.Size):
+            return torch.from_numpy(np.array(flat[prefix[:-1]],
+                                             np.float32)).to(device)
+        if isinstance(shapes, tuple):
+            return tuple(build(v, f"{prefix}{i}.")
+                         for i, v in enumerate(shapes))
+        return {k: build(v, f"{prefix}{k}.") for k, v in shapes.items()}
+    return build(param_shapes(cfg), "")
+
+
+def _walk_shapes(tree, prefix, out):
+    if isinstance(tree, torch.Size):
+        out[prefix[:-1]] = tuple(tree)
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            _walk_shapes(v, f"{prefix}{k}.", out)
+    else:
+        for i, v in enumerate(tree):
+            _walk_shapes(v, f"{prefix}{i}.", out)

@@ -14,13 +14,15 @@ the single-client kernel's sums equal to the batched kernel's row;
 selection ids and weights equal (one-shot, column-tiled and ANN);
 Hamming distances equal; one-shot exchange l_ij and target rtol 1e-5
 (atol 1e-5 for target); streamed exchange l_ij and target rtol 2e-5,
-atol 1e-5; masks equal.
+atol 1e-5; masks equal (and l_ij NaN where the plain version's is, for
+labels outside [-C, C)); flash attention max abs error 2e-5 in f32 and
+2e-2 in bf16 on unit-normal inputs.
 """
 import pytest
 import torch
 
-from repro_torch.kernels import (exchange, hamming, lsh_projection, ref,
-                                 selection)
+from repro_torch.kernels import (exchange, flash_attention, hamming,
+                                 lsh_projection, ops, ref, selection)
 
 
 @pytest.fixture
@@ -310,3 +312,92 @@ def test_ann_round_launches_the_ann_kernel(cuda):
             assert all(i not in row for i, row in
                        enumerate(h["neighbor_ids"]))
     assert runs[0] == runs[1]
+
+
+@pytest.mark.cuda
+def test_exchange_kernel_reads_out_of_range_labels_as_plain(cuda):
+    """Labels -1, C and -C-1: -1 wraps to C-1; C and -C-1 make that
+    client's l_ij NaN for every neighbour, as the JAX package does."""
+    g = _gen(8)
+    c = 6
+    own = torch.randn((4, 5, c), generator=g, device=cuda) * 3
+    nb = torch.randn((4, 3, 5, c), generator=g, device=cuda) * 3
+    y = torch.randint(0, c, (4, 5), generator=g, device=cuda)
+    y[0, 1], y[1, 2], y[2, 0] = -1, c, -c - 1
+    sel = torch.rand((4, 3), generator=g, device=cuda) < 0.8
+    kl, kv, kt, kh = exchange.fused_exchange(own, nb, y, sel)
+    pl, pv, pt, ph = ref.all_in_one_exchange_ref(own, nb, y, sel)
+    assert bool(kl[1:3].isnan().all()) and bool(kl[[0, 3]].isfinite().all())
+    torch.testing.assert_close(kl, pl, rtol=1e-5, atol=0.0, equal_nan=True)
+    torch.testing.assert_close(kt, pt, rtol=1e-5, atol=1e-5)
+    assert torch.equal(kv, pv) and torch.equal(kh, ph)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,sq,sk,dh", [
+    (2, 256, 256, 128), (1, 1024, 512, 64), (2, 256, 512, 128),
+    (3, 1000, 1000, 128), (2, 77, 130, 80), (1, 200, 200, 256)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(cuda, n, sq, sk, dh, causal,
+                                              dtype):
+    g = _gen(sq + dh)
+    q, k, v = (torch.randn((n, s, dh), generator=g, device=cuda).to(dtype)
+               for s in (sq, sk, sk))
+    before = flash_attention.KERNEL.launches
+    o = flash_attention.flash_attention(q, k, v, causal=causal)
+    assert flash_attention.KERNEL.launches == before + 1
+    pl = ref.flash_attention_ref(q, k, v, causal=causal)
+    assert o.dtype == dtype and o.shape == (n, sq, dh)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    assert (o.float() - pl.float()).abs().max().item() < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,kv", [(24, 8), (4, 4), (6, 1)])
+def test_gqa_flash_kernel_matches_plain(cuda, h, kv):
+    """The kernel reads KV head i // (H // KV) through strides, on the
+    model's (B, S, H, dh) layout, and the plain repeat gives the same."""
+    g = _gen(h * 10 + kv)
+    q = torch.randn((2, 300, h, 128), generator=g, device=cuda)
+    k = torch.randn((2, 300, kv, 128), generator=g, device=cuda)
+    v = torch.randn((2, 300, kv, 128), generator=g, device=cuda)
+    o = ops.gqa_flash_attention(q, k, v, causal=True)
+    pl = ops.gqa_flash_attention(q, k, v, causal=True, use_kernel=False)
+    assert (o - pl).abs().max().item() < 2e-5
+
+
+@pytest.mark.cuda
+def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    q = torch.zeros((1, 8, 1, 320), device=cuda)
+    with pytest.raises(ValueError, match="head dim 320"):
+        flash_attention.gqa_attention(q, q, q)
+    x = torch.zeros((1, 8, 16), device=cuda)
+    with pytest.raises(ValueError, match="one device"):
+        flash_attention.flash_attention(x, x.cpu(), x)
+    with pytest.raises(ValueError, match="one device"):
+        flash_attention.flash_attention(x.cpu(), x, x)
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        flash_attention.flash_attention(x, x.half(), x)
+
+
+@pytest.mark.cuda
+def test_served_tokens_equal_with_and_without_the_kernel(cuda):
+    """The reduced minitron served through the kernel ("auto": one launch
+    per layer in the prefill, none in decode) and through the naive
+    attention gives the same tokens."""
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import attention
+    flash_attention.KERNEL.launches = 0
+    a = serve("minitron-4b", batch=2, prompt_len=64, max_new=6, device=cuda)
+    assert flash_attention.KERNEL.launches == 2
+    try:
+        attention.set_attn_impl("naive")
+        b = serve("minitron-4b", batch=2, prompt_len=64, max_new=6,
+                  device=cuda, params=a["params"])
+    finally:
+        attention.set_attn_impl("auto")
+    assert flash_attention.KERNEL.launches == 2
+    torch.testing.assert_close(a["logits"][0], b["logits"][0], rtol=1e-4,
+                               atol=1e-4)
+    assert (a["generated"] == b["generated"]).all()

@@ -48,6 +48,9 @@ from repro_torch.launch.fed import run_federation
 _, hist = run_federation("aecg", rounds=1, num_clients=3, device="cpu",
                          log=None)
 assert len(hist) == 1
+from repro_torch.launch.serve import serve
+res = serve("minitron-4b", batch=1, prompt_len=4, max_new=2, device="cpu")
+assert res["generated"].shape == (1, 2)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LOADED", bad)
@@ -67,6 +70,16 @@ def test_run_federation_needs_a_card_unless_told(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_federation("aecg", rounds=1, num_clients=3, log=None)
+
+
+def test_serve_needs_a_card_unless_told(monkeypatch):
+    from repro_torch.launch.serve import serve
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve("minitron-4b", batch=1, prompt_len=4, max_new=2)
+    res = serve("minitron-4b", batch=1, prompt_len=4, max_new=2,
+                device="cpu")
+    assert res["generated"].shape == (1, 2)
 
 
 @pytest.mark.parametrize("alone", [False, True])

@@ -14,7 +14,8 @@ each kernel wrapper takes its plain PyTorch version. Tolerances:
 * selection weights: within 1 ulp (torch's and XLA's f32 exp in the
   table may differ in the last bit);
 * exchange l_ij and target: rtol 1e-5 (log-softmax, exp and mean in
-  another order).
+  another order), NaN where the JAX package gives NaN (labels outside
+  [-C, C)).
 
 The CUDA kernels themselves are held against their plain versions on
 the card by `tests/test_torch_cuda.py` and `chip_smoke.py`.
@@ -272,6 +273,52 @@ def test_exchange_matches_jax_oracle(m, n, r, c, lsh_verification, tie):
     np.testing.assert_allclose(pt, jt, rtol=1e-5, atol=1e-6)
     assert pv.dtype == np.bool_ and np.array_equal(pv, jv)
     assert np.array_equal(ph, jh)
+
+
+def _bad_label_inputs(c=6):
+    """Labels -1 (wraps to C-1), C and -C-1 (read NaN) in three of four
+    clients; client 3's labels are all in range."""
+    own, nb, y, sel = _exchange_inputs(4, 3, 5, c, seed=11)
+    y[0, 1], y[1, 2], y[2, 0] = -1, c, -c - 1
+    return own, nb, y, sel
+
+
+@pytest.mark.parametrize("lsh_verification", [True, False])
+def test_exchange_out_of_range_labels_match_jax(lsh_verification):
+    """The one-shot exchange reads a label outside [0, C) as the JAX
+    package's kernel and oracle do (`take_along_axis` in fill mode): -1
+    wraps to C-1, C and -C-1 give that client NaN l_ij for every
+    neighbour; valid and target do not depend on labels."""
+    from repro.kernels.exchange import fused_exchange as jax_exchange
+    own, nb, y, sel = _bad_label_inputs()
+    args = [jnp.asarray(a) for a in (own, nb, y, sel)]
+    p = exchange.fused_exchange(_t(own), _t(nb), _t(y), _t(sel),
+                                lsh_verification=lsh_verification)
+    pl, pv, pt, ph = (a.numpy() for a in p)
+    assert np.isnan(pl[1:3]).all() and np.isfinite(pl[[0, 3]]).all()
+    for j in (jref.all_in_one_exchange_ref(
+                  *args, lsh_verification=lsh_verification),
+              jax_exchange(*args, lsh_verification=lsh_verification,
+                           interpret=True)):
+        jl, jv, jt, jh = (np.asarray(a) for a in j)
+        np.testing.assert_allclose(pl, jl, rtol=1e-5, equal_nan=True)
+        np.testing.assert_allclose(pt, jt, rtol=1e-5, atol=1e-6)
+        assert np.array_equal(pv, jv) and np.array_equal(ph, jh)
+
+
+def test_streamed_exchange_out_of_range_labels_match_jax():
+    """The streamed path on the same labels: a label outside [0, C)
+    matches no column (NLL = the row's log-sum-exp), in the port's
+    plain version as in the JAX package's `streamed_exchange_ref`."""
+    own, nb, y, sel = _bad_label_inputs()
+    j = jref.streamed_exchange_ref(*(jnp.asarray(a)
+                                     for a in (own, nb, y, sel)))
+    p = exchange.fused_exchange_streamed(_t(own), _t(nb), _t(y), _t(sel))
+    jl, jv, jt, jh = (np.asarray(a) for a in j)
+    pl, pv, pt, ph = (a.numpy() for a in p)
+    np.testing.assert_allclose(pl, jl, rtol=2e-5, atol=1e-5)
+    np.testing.assert_allclose(pt, jt, rtol=2e-5, atol=1e-5)
+    assert np.array_equal(pv, jv) and np.array_equal(ph, jh)
 
 
 # ---------------------------------------------------------------------------
