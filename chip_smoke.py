@@ -22,11 +22,15 @@
    probes 8): the main shape, all ties, clustered codes at M = 4096 and
    65,536, and with prefix_bits=0 against the one-shot kernel; the
    flash-attention kernel at the serving path's shape (N = 4 * 24 heads,
-   Sq = Sk = 2048, dh = 128, f32, causal), at the JAX kernel's contract
-   points, bidirectional with Sq != Sk, at lengths that are no tile
-   multiple, in bf16, at dh = 256 and on the model's GQA layout, timed
-   beside torch's scaled_dot_product_attention (`library_ms`, never
-   called by the port). One JSON line per kernel and shape.
+   Sq = Sk = 2048, dh = 128, f32, causal) and the same in bf16, at the
+   JAX kernel's contract points, bidirectional with Sq != Sk, at lengths
+   that are no tile multiple, in bf16, at dh = 256 and on the model's GQA
+   layout, timed beside torch's scaled_dot_product_attention
+   (`library_ms`, never called by the port) and bounded on its route
+   (the tensor cores: f32 by 3xTF32 at 495 / 3 TFLOP/s, bf16 at 989;
+   `cuda_core_bound_ms` at the f32 CUDA-core 67). The Hamming checks
+   print the path the launch took (small or tiled). One JSON line per
+   kernel and shape.
 3. Drives the main paths, every kernel's launch count set to 0 just
    before each and read just after: `run_federation("mnist", rounds=2,
    backend="kernel")` on the card, the same with `tiling="tiled"`, and
@@ -86,10 +90,19 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 (non-tensor) FLOP/s,
-# and int32 operations/s (64 INT32 lanes per SM, half the 128 f32 lanes).
+# and int32 operations/s (64 INT32 lanes per SM, half the 128 f32 lanes);
+# the tensor cores' dense TF32 and bf16 FLOP/s. An f32-accurate product
+# on the tensor cores takes three TF32 products (3xTF32), so f32 work runs
+# there at a third of the TF32 rate.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 INT32_OP_PER_S = F32_FLOP_PER_S / 4
+TF32_FLOP_PER_S = 495e12
+F32_3XTF32_FLOP_PER_S = TF32_FLOP_PER_S / 3
+BF16_FLOP_PER_S = 989e12
+# __popc per SM per clock on compute capability 9.0 (CUDA programming
+# guide, arithmetic instruction throughput), at the H100 SXM's 1.98 GHz
+POPC_PER_S = 16 * 132 * 1.98e9
 HASH_OPS = 8            # integer operations of one Rademacher hash
 STREAMED_EXCHANGE_NAMES = ("exchange_stats_kernel", "exchange_mask_kernel",
                            "exchange_target_kernel")
@@ -515,9 +528,12 @@ def check_hamming(torch, m, bits, gen):
     """All pairs of one code set, as `lsh.distance_matrix` computes them,
     against the plain version; `library_ms` is torch.cdist(p=0) on the
     unpacked bits as float (counts the differing bits; unpacking not
-    timed)."""
+    timed). `path` is the launch's path (small or tiled, chosen by M*N
+    in the C entry point); `popc_floor_ms` the M*M*W popcounts at 16 per
+    SM per clock."""
     from repro_torch.kernels import hamming, ops, ref
     w = bits // 32
+    path = hamming.launch_path(m, m)
     codes, _ = selection_inputs(torch, m, bits, gen, ties=True)
     codes[1] = codes[0]
     k = hamming.hamming_all_pairs(codes, codes)
@@ -529,13 +545,14 @@ def check_hamming(torch, m, bits, gen):
     unpacked = ops.unpack_bits(codes, bits).float()
     n0 = hamming.KERNEL.launches
     t = timings(lambda: hamming.hamming_all_pairs(codes, codes),
-                ("hamming_kernel",),
+                (f"hamming_{path}_kernel",),
                 lambda: ref.hamming_all_pairs_ref(codes, codes),
                 library_fn=lambda: torch.cdist(unpacked, unpacked, p=0),
                 plain_iters=2 if m > 8192 else 20)
     bms, by = bound(4.0 * (2 * m * w + m * m), 3.0 * m * m * w
                     / INT32_OP_PER_S)
     return dict(**t, max_abs_err=0.0, bound_ms=bms, bound_by=by,
+                popc_floor_ms=m * m * w / POPC_PER_S * 1e3, path=path,
                 launches=hamming.KERNEL.launches - n0)
 
 
@@ -555,8 +572,11 @@ def check_flash(torch, n, sq, sk, dh, causal, dtype, gen, heads=None):
     then). `library_ms`: torch's scaled_dot_product_attention on the same
     tensors, as a (1, N, S, dh) view (for the GQA layout heads moved next
     to the batch, KV heads repeated); `library_max_abs_err` its distance
-    from the plain version. Bound: q, k, v and out once;
-    4 * N * H * pairs * dh f32 operations."""
+    from the plain version. Bound: q, k, v and out once; 4 * N * H *
+    pairs * dh operations on the kernel's route, the tensor cores: f32 by
+    3xTF32 at a third of the TF32 rate, bf16 at the bf16 rate
+    (`cuda_core_bound_ms`: the same operations at the f32 CUDA-core
+    rate, the bound of the earlier CUDA-core kernel)."""
     from repro_torch.kernels import flash_attention, ops, ref
     sdpa = torch.nn.functional.scaled_dot_product_attention
     if heads is None:
@@ -598,11 +618,13 @@ def check_flash(torch, n, sq, sk, dh, causal, dtype, gen, heads=None):
     n0 = flash_attention.KERNEL.launches
     t = timings(call, ("flash_fwd_kernel",), plain, library_fn=lib)
     size = q.element_size()
-    bms, by = bound(size * (2.0 * q.numel() + 2.0 * k.numel()),
-                    4.0 * n * h * attention_pairs(sq, sk, causal) * dh
-                    / F32_FLOP_PER_S)
+    flop = 4.0 * n * h * attention_pairs(sq, sk, causal) * dh
+    rate = F32_3XTF32_FLOP_PER_S if dtype == torch.float32 \
+        else BF16_FLOP_PER_S
+    bms, by = bound(size * (2.0 * q.numel() + 2.0 * k.numel()), flop / rate)
     return dict(**t, max_abs_err=err, library_max_abs_err=lib_err,
                 bound_ms=bms, bound_by=by,
+                cuda_core_bound_ms=flop / F32_FLOP_PER_S * 1e3,
                 launches=flash_attention.KERNEL.launches - n0)
 
 
@@ -1102,6 +1124,7 @@ def main() -> int:
          check_flash(torch, n, sq, sk, dh, causal, dt, gen, **extra))
         for n, sq, sk, dh, causal, dt, extra in (
             (96, 2048, 2048, 128, True, torch.float32, {}),
+            (96, 2048, 2048, 128, True, torch.bfloat16, {}),
             (2, 512, 512, 128, True, torch.float32, {}),
             (1, 1024, 512, 64, True, torch.float32, {}),
             (2, 256, 512, 128, False, torch.float32, {}),

@@ -102,6 +102,15 @@ class CudaKernel:
             self._fn = fn
         return self._fn
 
+    def helper(self, symbol: str, argtypes: List[type]):
+        """Another exported C function of the same library (one that
+        launches nothing, e.g. a query of the launch's choice)."""
+        self.function()
+        fn = getattr(self._lib, symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        return fn
+
     def launch(self, device: torch.device, *args) -> None:
         """Launch on `device` and its current stream (the C entry point
         takes both after `args`); raise on a launch error."""

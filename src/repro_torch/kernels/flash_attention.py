@@ -2,14 +2,19 @@
 
 Replaces the TPU kernel `repro/kernels/flash_attention.py:flash_attention`
 (`_flash_kernel`). The kernel (`csrc/flash_attention.cu`) runs one block
-per (head, tile of query rows), stages the query tile and one K/V tile at
-a time in shared memory and keeps the scores and the running max and sum
-on chip, so only q, k, v and the output touch device memory. It computes
-exactly `ref.flash_attention_ref`: f32 arithmetic on f32 or bf16 inputs,
-scale dh**-0.5 when 0 is passed, the causal mask aligned top-left with
--1e30 for a masked score, out = acc / max(l, 1e-30) in the input dtype.
-It takes any Sq and Sk and dh <= 256. Its bound on the H100 is the
-4 * N * Sq * Sk * dh f32 operations (halved when causal with Sq = Sk).
+of two warpgroups per (head, 128 query rows; one and 64 rows for f32 at
+dh > 128) on Hopper's tensor cores (`wgmma`): f32 inputs through 3xTF32
+(hi*hi + hi*lo + lo*hi, the f32 accuracy of the plain version), bf16
+inputs through bf16 products with P split into two bf16 halves. K/V tiles stream through a cp.async ring in
+shared memory, and the scores, P and the running max and sum stay in
+registers, so only q, k, v and the output touch device memory. It
+computes exactly `ref.flash_attention_ref`: f32 arithmetic on f32 or bf16
+inputs, scale dh**-0.5 when 0 is passed, the causal mask aligned top-left
+with -1e30 for a masked score, out = acc / max(l, 1e-30) in the input
+dtype. It takes any Sq and Sk and dh <= 256; rows that are not 16-byte
+aligned are staged element by element inside the kernel. Its bound on
+the H100 is the 4 * N * pairs * dh operations on the tensor cores: f32 at
+495 / 3 TFLOP/s (three TF32 products each), bf16 at 989 TFLOP/s.
 
 `flash_attention` takes the TPU kernel's (N, S, dh) layout;
 `gqa_attention` takes the model's (B, S, H, dh) queries and (B, S, KV, dh)

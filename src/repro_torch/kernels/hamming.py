@@ -1,15 +1,19 @@
 """All-pairs Hamming distance (WPFed Eq. 6): wrapper of the CUDA kernel.
 
 Replaces the TPU kernel `repro/kernels/hamming.py:hamming_all_pairs`
-(`_hamming_kernel`). The kernel (`csrc/hamming.cu`) computes 32 x 32
-output tiles per block from both tiles' codes in shared memory (XOR +
-`__popc`) and stores coalesced int32 rows; it takes any M, N and W (the
-TPU wrapper's lane padding does not carry over). Its bound on the H100
-is the M*N*4 output bytes or the 3*M*N*W integer operations. Only the
-unfused Eq. 6-8 composition (`core.lsh.distance_matrix`) reaches it: the
-round selects through the fused kernels. The wrapper takes the plain
-version (`ref.hamming_all_pairs_ref`) for CPU tensors only; for a CUDA
-tensor it launches the kernel or raises.
+(`_hamming_kernel`); it takes any M, N and W (the TPU wrapper's lane
+padding does not carry over). The C entry point (`csrc/hamming.cu`)
+picks one of two paths by M*N (`launch_path`): up to 4,096 outputs (the
+federation's M = 10) one thread per output reads both codes as uint4 and
+keeps XOR + `__popc` in registers, with no shared memory and no barrier;
+above, 64 x 64 output tiles per block, codes staged word-major in shared
+memory over the live rows and words only, a 4 x 4 register tile per
+thread and int4 stores. Its bound on the H100 is the M*N*4 output bytes
+or the M*N*W popcounts (16 per SM per clock). Only the unfused Eq. 6-8
+composition (`core.lsh.distance_matrix`) reaches it: the round selects
+through the fused kernels. The wrapper takes the plain version
+(`ref.hamming_all_pairs_ref`) for CPU tensors only; for a CUDA tensor it
+launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -24,6 +28,13 @@ KERNEL = CudaKernel(
     "hamming", "hamming.cu", "hamming_all_pairs",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
      ctypes.c_int, ctypes.c_void_p])
+
+
+def launch_path(m: int, n: int) -> str:
+    """"small" or "tiled": the path the kernel's C entry point takes for
+    M x N outputs (asks the built library, so it needs nvcc)."""
+    path = KERNEL.helper("hamming_path", [ctypes.c_int, ctypes.c_int])
+    return ("small", "tiled")[path(m, n)]
 
 
 def hamming_all_pairs(codes_a: torch.Tensor,

@@ -253,6 +253,23 @@ def test_hamming_kernel_matches_plain(cuda, m, n, words):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m,n,path", [(64, 64, "small"), (65, 64, "tiled"),
+                                      (1, 4096, "small"),
+                                      (4097, 1, "tiled")])
+@pytest.mark.parametrize("words", [1, 4, 5, 32, 33])
+def test_hamming_kernel_on_both_paths(cuda, m, n, path, words):
+    """Both sides of the small/tiled switch (4,096 outputs), at word
+    counts with and without 16-byte rows and past one 32-word step."""
+    assert hamming.launch_path(m, n) == path
+    g = _gen(m * 7 + n + words)
+    a = _random_codes(g, m, words, cuda)
+    b = _random_codes(g, n, words, cuda)
+    b[0] = a[0]
+    assert torch.equal(hamming.hamming_all_pairs(a, b),
+                       ref.hamming_all_pairs_ref(a, b))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("p", [4096, 8192, 421_888])
 def test_lsh_single_kernel_matches_plain_and_the_batched_row(cuda, p):
     x = torch.randn((3, p), generator=_gen(p), device=cuda) * 0.05
@@ -336,7 +353,9 @@ def test_exchange_kernel_reads_out_of_range_labels_as_plain(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,sq,sk,dh", [
     (2, 256, 256, 128), (1, 1024, 512, 64), (2, 256, 512, 128),
-    (3, 1000, 1000, 128), (2, 77, 130, 80), (1, 200, 200, 256)])
+    (3, 1000, 1000, 128), (2, 77, 130, 80), (1, 200, 200, 256),
+    (1, 200, 200, 100), (2, 1, 300, 128), (1, 100, 333, 64),
+    (2, 300, 520, 256)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(cuda, n, sq, sk, dh, causal,
@@ -365,6 +384,51 @@ def test_gqa_flash_kernel_matches_plain(cuda, h, kv):
     o = ops.gqa_flash_attention(q, k, v, causal=True)
     pl = ops.gqa_flash_attention(q, k, v, causal=True, use_kernel=False)
     assert (o - pl).abs().max().item() < 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_on_unaligned_rows(cuda, dtype):
+    """Views whose rows start one element past a 16-byte boundary take
+    the kernel's element-by-element staging."""
+    g = _gen(7)
+    q, k, v = (torch.randn((2, s, 129), generator=g, device=cuda)
+               .to(dtype)[:, :, 1:] for s in (150, 150, 150))
+    o = flash_attention.flash_attention(q, k, v, causal=True)
+    pl = ref.flash_attention_ref(q, k, v, causal=True)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    assert (o.float() - pl.float()).abs().max().item() < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_on_a_fused_qkv_projection(cuda, dtype):
+    """q, k and v as non-contiguous slices of one (B, S, 3, H, dh)
+    projection go in through their strides."""
+    g = _gen(8)
+    qkv = torch.randn((2, 300, 3, 4, 128), generator=g,
+                      device=cuda).to(dtype)
+    q, k, v = qkv.unbind(2)
+    assert not q.is_contiguous()
+    o = ops.gqa_flash_attention(q, k, v, causal=True)
+    pl = ops.gqa_flash_attention(q, k, v, causal=True, use_kernel=False)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    assert (o.float() - pl.float()).abs().max().item() < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gqa_flash_kernel_at_the_serving_length(cuda, dtype):
+    """Minitron-4B's head layout (24 query heads, 8 KV heads) at a
+    2048-token prompt."""
+    g = _gen(9)
+    q = torch.randn((1, 2048, 24, 128), generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn((1, 2048, 8, 128), generator=g, device=cuda)
+            .to(dtype) for _ in range(2))
+    o = ops.gqa_flash_attention(q, k, v, causal=True)
+    pl = ops.gqa_flash_attention(q, k, v, causal=True, use_kernel=False)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    assert (o.float() - pl.float()).abs().max().item() < tol
 
 
 @pytest.mark.cuda

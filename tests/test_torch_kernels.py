@@ -146,6 +146,21 @@ def test_hamming_all_pairs_bit_exact():
     assert np.array_equal(p, j)
 
 
+@pytest.mark.parametrize("words", [1, 4, 5, 32, 33])
+def test_hamming_all_pairs_bit_exact_at_word_counts(words):
+    """Word counts with and without 16-byte rows and past one 32-word
+    step of the CUDA kernel's staging, on both sides of its small/tiled
+    switch (64 x 64 and 65 x 64 outputs)."""
+    rs = np.random.RandomState(words)
+    ua, ia = _codes(rs, 65, words)
+    ub, ib = _codes(rs, 64, words)
+    for m in (64, 65):
+        j = np.asarray(jref.hamming_all_pairs_ref(jnp.asarray(ua[:m]),
+                                                  jnp.asarray(ub)))
+        p = ref.hamming_all_pairs_ref(_t(ia[:m]), _t(ib)).numpy()
+        assert np.array_equal(p, j)
+
+
 # ---------------------------------------------------------------------------
 # LSH projection (Pallas row 1)
 # ---------------------------------------------------------------------------

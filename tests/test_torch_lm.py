@@ -102,6 +102,28 @@ def test_flash_plain_matches_pallas_kernel_and_oracle(n, sq, sk, dh, causal,
         assert err < tol, err
 
 
+@pytest.mark.parametrize("n,sq,sk,dh", [
+    (1, 200, 200, 100), (2, 1, 300, 128), (1, 100, 333, 64),
+    (1, 40, 72, 256)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plain_matches_oracle_at_the_kernel_edges(n, sq, sk, dh,
+                                                        causal, dtype):
+    """The plain version against the JAX oracle at the CUDA kernel's tile
+    and alignment edges: dh = 100 (bf16 rows not 16-byte aligned), one
+    query over 300 keys, Sq < Sk with the top-left causal mask, dh =
+    256."""
+    q, k, v = _qkv(n, sq, sk, dh, seed=n + sq + sk + dh)
+    jx = [jnp.asarray(a).astype(getattr(jnp, dtype)) for a in (q, k, v)]
+    tx = [_t(a).to(getattr(torch, dtype)) for a in (q, k, v)]
+    port = flash_attention.flash_attention(*tx, causal=causal)
+    assert port.dtype == tx[0].dtype and port.shape == (n, sq, dh)
+    want = jref.flash_attention_ref(*jx, causal=causal)
+    err = np.abs(_np(port.float())
+                 - np.asarray(want.astype(jnp.float32))).max()
+    assert err < (2e-5 if dtype == "float32" else 2e-2), err
+
+
 @pytest.mark.parametrize("h,kv,s,causal,use_kernel", [
     (4, 2, 256, True, True), (4, 1, 256, False, True),
     (6, 3, 40, True, False), (4, 4, 40, False, False)])
