@@ -29,8 +29,16 @@
    (`library_ms`, never called by the port) and bounded on its route
    (the tensor cores: f32 by 3xTF32 at 495 / 3 TFLOP/s, bf16 at 989;
    `cuda_core_bound_ms` at the f32 CUDA-core 67). The Hamming checks
-   print the path the launch took (small or tiled). One JSON line per
-   kernel and shape.
+   print the path the launch took (small or tiled). The LSH checks print
+   the split length L (`lsh_projection.split_len`, from P alone), the
+   instance the launch took (single / few / many rows, with rows and bits
+   per block) and `order_equal`: the kernel's sums equal to the order
+   twin `ref.lsh_project_sums_split_order` bit for bit (and the
+   single-client sums to the batched row); either raises when false.
+   The batched LSH checks also print the row groups the wrapper launched
+   and the call's peak allocation, and raise when it passes the plan's
+   scratch and output (M=65,536, P=12,288 runs in groups).
+   One JSON line per kernel and shape.
 3. Drives the main paths, every kernel's launch count set to 0 just
    before each and read just after: `run_federation("mnist", rounds=2,
    backend="kernel")` on the card, the same with `tiling="tiled"`, and
@@ -82,6 +90,8 @@ kernel's test bound).
 from __future__ import annotations
 
 import json
+import math
+import re
 import statistics
 import subprocess
 import sys
@@ -126,11 +136,12 @@ def time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, names=(), iters: int = 20):
+def device_ms(fn, names=(), iters: int = 20, per_call: int = 1):
     """Device time per call of fn() in ms, from torch.profiler. With
-    `names` (a wrapper's kernels, each launched once per call): the sum
-    over names of the median duration of the kernels whose name contains
-    it, which a dropped activity record does not bias (in one H100 run
+    `names` (a wrapper's kernels, each launched `per_call` times per
+    call): the sum over names of the median duration of the kernels
+    whose name contains it, times `per_call`, which a dropped activity
+    record does not bias (in one H100 run
     the summed records of 20 calls of a 15 ms kernel came to a third of
     the CUDA-event time). Without: all device activity of the `iters`
     calls, summed, per call. None when the profiler records no such
@@ -142,7 +153,7 @@ def device_ms(fn, names=(), iters: int = 20):
                     for n in names]
         if not all(per_name):
             return None
-        return sum(statistics.median(d) for d in per_name) / 1e3
+        return per_call * sum(statistics.median(d) for d in per_name) / 1e3
     if not dev:
         return None
     return sum(e.time_range.elapsed_us() for e in dev) / iters / 1e3
@@ -189,17 +200,19 @@ def is_device_work(e, DeviceType) -> bool:
 
 
 def timings(kernel_fn, kernel_names, plain_fn, library_fn=None,
-            plain_iters: int = 20):
+            plain_iters: int = 20, per_call: int = 1):
     """kernel_ms: the kernel's own device time per call (CUDA events
     around the wrapper when the profiler sees no device activity);
     call_ms: CUDA events around one wrapper call, host overhead and
     input casts included; plain_ms: all device time per call of the
     plain version; library_ms: the library call's device time by kernel
-    name (`library_device_ms`); each with its event-timed call_ms."""
+    name (`library_device_ms`); each with its event-timed call_ms.
+    `per_call`: launches of each kernel name per wrapper call."""
     out = {"call_ms": time_ms(kernel_fn),
            "plain_call_ms": time_ms(plain_fn, warmup=min(3, plain_iters),
                                     iters=plain_iters)}
-    out["kernel_ms"] = device_ms(kernel_fn, kernel_names) or out["call_ms"]
+    out["kernel_ms"] = (device_ms(kernel_fn, kernel_names, per_call=per_call)
+                        or out["call_ms"])
     out["plain_ms"] = (device_ms(plain_fn, iters=plain_iters)
                        or out["plain_call_ms"])
     out["library_ms"] = None
@@ -219,10 +232,43 @@ def bound(bytes_moved: float, ops_time_s: float):
     return ops_time_s * 1e3, "operations"
 
 
+LSH_NAMES = ("lsh_partial", "lsh_reduce")
+
+
+def lsh_order(torch, x, k, bits):
+    """split_len, the instance the launch took (single / few / many rows,
+    with its rows and bits per block), the groups of rows the batched
+    wrapper launches one by one, and whether the kernel's sums equal
+    the order twin's bit for bit; raises when they do not."""
+    from repro_torch.kernels import lsh_projection, ref
+    m, p = x.shape
+    chunk = lsh_projection.split_len(p)
+    twin = ref.lsh_project_sums_split_order(x, 7, bits=bits, chunk=chunk)
+    equal = bool(torch.equal(k.reshape(m, bits), twin))
+    del twin
+    if not equal:
+        raise AssertionError(f"lsh kernel differs from the order twin at "
+                             f"M={m}, P={p}, L={chunk}")
+    choice = lsh_projection.launch_choice(m, p, bits)
+    return {"split_len": chunk, **choice,
+            "row_groups": len(lsh_projection.row_groups(m, p, bits)),
+            "order_equal": equal}
+
+
 def check_lsh(torch, m, p, bits, gen):
     from repro_torch.kernels import lsh_projection, ops, ref
     x = torch.randn((m, p), generator=gen, device="cuda") * 0.05
+    # the call's own allocations: its output and the scratch of the plan
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     k = lsh_projection.lsh_project_sums_batched(x, 7, bits=bits)
+    call_peak_bytes = torch.cuda.max_memory_allocated() - base
+    _, groups, shape = lsh_projection.split_plan(p, m, bits)
+    planned = 4 * (math.prod(shape) + m * bits)
+    if call_peak_bytes > planned + (1 << 20):
+        raise AssertionError(f"lsh call allocated {call_peak_bytes} bytes, "
+                             f"planned {planned}")
     pl = ref.lsh_project_sums_batched_ref(x, 7, bits=bits)
     torch.cuda.synchronize()
     scale = x.norm(dim=1, keepdim=True)
@@ -232,20 +278,23 @@ def check_lsh(torch, m, p, bits, gen):
     off_zero = pl.abs() > 1e-3
     if not torch.equal((k > 0)[off_zero], (pl > 0)[off_zero]):
         raise AssertionError("lsh code bits disagree off zero")
+    order = lsh_order(torch, x, k, bits)
     n0 = lsh_projection.KERNEL.launches
     r = ops.rademacher_block(0, p, bits, 7, device="cuda")
     t = timings(lambda: lsh_projection.lsh_project_sums_batched(
                     x, 7, bits=bits),
-                ("lsh_partial_kernel", "lsh_reduce_kernel"),
+                LSH_NAMES,
                 lambda: ref.lsh_project_sums_batched_ref(x, 7, bits=bits),
-                library_fn=lambda: torch.matmul(x, r), plain_iters=5)
+                library_fn=lambda: torch.matmul(x, r), plain_iters=5,
+                per_call=len(groups))
     del r
     # f32 FMAs and the integer hash run on separate pipes: the larger wins
     ops_s = max(2.0 * m * p * bits / F32_FLOP_PER_S,
                 HASH_OPS * p * bits / INT32_OP_PER_S)
     bms, by = bound(4.0 * m * p + 4.0 * m * bits, ops_s)
-    return dict(**t, max_abs_err=err.max().item(), bound_ms=bms,
-                bound_by=by, launches=lsh_projection.KERNEL.launches - n0)
+    return dict(**t, **order, max_abs_err=err.max().item(), bound_ms=bms,
+                bound_by=by, call_peak_bytes=call_peak_bytes,
+                launches=lsh_projection.KERNEL.launches - n0)
 
 
 def selection_inputs(torch, m, bits, gen, ties):
@@ -493,9 +542,9 @@ def check_selection_ann(torch, m, bits, n, gen, kind="random",
 
 
 def check_lsh_single(torch, p, bits, gen):
-    """The single-client kernel against its plain version, and its sums
-    against the batched kernel's row on the same vector (`batched_equal`:
-    bit for bit)."""
+    """The single-client kernel against its plain version and the order
+    twin, and its sums against the batched kernel's row on the same
+    vector (`batched_equal`: bit for bit)."""
     from repro_torch.kernels import lsh_projection, ops, ref
     x = torch.randn((p,), generator=gen, device="cuda") * 0.05
     k = lsh_projection.lsh_project_sums(x, 7, bits=bits)
@@ -509,18 +558,21 @@ def check_lsh_single(torch, p, bits, gen):
     off_zero = pl.abs() > 1e-3
     if not torch.equal((k > 0)[off_zero], (pl > 0)[off_zero]):
         raise AssertionError("lsh_single code bits disagree off zero")
+    order = lsh_order(torch, x[None], k, bits)
     n0 = lsh_projection.SINGLE_KERNEL.launches
     r = ops.rademacher_block(0, p, bits, 7, device="cuda")
     t = timings(lambda: lsh_projection.lsh_project_sums(x, 7, bits=bits),
-                ("lsh_partial_kernel", "lsh_reduce_kernel"),
+                LSH_NAMES,
                 lambda: ref.lsh_project_sums_ref(x, 7, bits=bits),
                 library_fn=lambda: torch.matmul(x, r), plain_iters=5)
     del r
     ops_s = max(2.0 * p * bits / F32_FLOP_PER_S,
                 HASH_OPS * p * bits / INT32_OP_PER_S)
     bms, by = bound(4.0 * p + 4.0 * bits, ops_s)
-    return dict(**t, max_abs_err=err.max().item(), bound_ms=bms, bound_by=by,
-                batched_equal=bool(torch.equal(k, row)),
+    if not torch.equal(k, row):
+        raise AssertionError("lsh_single sums differ from the batched row")
+    return dict(**t, **order, max_abs_err=err.max().item(), bound_ms=bms,
+                bound_by=by, batched_equal=True,
                 launches=lsh_projection.SINGLE_KERNEL.launches - n0)
 
 
@@ -797,6 +849,22 @@ def profile_round(run_federation, names, tiling: str = "auto",
             "top_device_ms": by_name.most_common(5)}
 
 
+def ptxas_summary(log: str) -> list:
+    """`nvcc -Xptxas -v` output as one line per kernel: its mangled
+    symbol, then its registers, shared memory and spills."""
+    out, name, spill = [], None, ""
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name = m.group(1)
+        elif "spill" in ln:
+            spill = ln.split(":", 1)[-1].strip()
+        elif "Used" in ln and "registers" in ln and name:
+            out.append(f"{name}: {ln.split('Used', 1)[1].strip()}; {spill}")
+            name = None
+    return out
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -1047,8 +1115,7 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = build.build_all(kernels.values())
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "ptxas": {name: [ln.strip() for ln in log.splitlines()
-                           if "registers" in ln or "spill" in ln]
+          "ptxas": {name: ptxas_summary(log)
                     for name, log in logs.items()}})
 
     # 2. each kernel against its plain version on the card
@@ -1062,6 +1129,12 @@ def main() -> int:
          lambda: check_lsh(torch, 16, 4096, 256, gen)),
         ("lsh_projection", dict(m=256, p=421_888, bits=256), False,
          lambda: check_lsh(torch, 256, 421_888, 256, gen)),
+        ("lsh_projection", dict(m=35, p=12_288, bits=256), False,
+         lambda: check_lsh(torch, 35, 12_288, 256, gen)),
+        ("lsh_projection", dict(m=4096, p=12_288, bits=256), False,
+         lambda: check_lsh(torch, 4096, 12_288, 256, gen)),
+        ("lsh_projection", dict(m=65_536, p=12_288, bits=256), False,
+         lambda: check_lsh(torch, 65_536, 12_288, 256, gen)),
         ("selection", dict(m=10, bits=256, n=9), True,
          lambda: check_selection(torch, 10, 256, 9, gen)),
         ("selection", dict(m=10, bits=256, n=9, ties=True), False,
@@ -1111,7 +1184,7 @@ def main() -> int:
     ] + [
         ("lsh_single", dict(p=p, bits=256), p == 421_888,
          lambda p=p: check_lsh_single(torch, p, 256, gen))
-        for p in (421_888, 4096, 8192)
+        for p in (421_888, 4096, 8192, 12_288)
     ] + [
         ("hamming", dict(m=m, bits=256), m == 10,
          lambda m=m: check_hamming(torch, m, 256, gen))
@@ -1174,7 +1247,7 @@ def main() -> int:
     check_auto_tiling_at_scale(torch, gen)
     check_auto_ann_at_scale(torch, gen)
 
-    names = ("lsh_partial_kernel", "lsh_reduce_kernel", "fused_select_kernel",
+    names = (*LSH_NAMES, "fused_select_kernel",
              "fused_exchange_kernel", "select_tiled_kernel",
              *STREAMED_EXCHANGE_NAMES, "select_ann_kernel")
     for backend, tiling in (("kernel", "oneshot"), ("kernel", "tiled"),

@@ -47,6 +47,30 @@ def lsh_project_sums_ref(x: torch.Tensor, seed: int, *,
     return lsh_project_sums_batched_ref(x[None], seed, bits=bits)[0]
 
 
+def lsh_project_sums_split_order(x2d: torch.Tensor, seed: int, *,
+                                 bits: int = 256,
+                                 chunk: int) -> torch.Tensor:
+    """(M, P) f32 -> (M, bits) f32 Eq. 5 sums in the LSH kernels' exact
+    order: P cut into P / chunk splits, one f32 chain per split from 0 in
+    increasing p, then the splits added in order from 0. Since R = +-1,
+    x * r is exact and `acc + x * r` rounds as the kernel's
+    fmaf(r, x, acc) does, so this equals the CUDA kernels bit for bit.
+    Used by the tests and `chip_smoke.py` only; it holds a (S, M, bits)
+    accumulator and all of R at once."""
+    m, p = x2d.shape
+    s = p // chunk
+    x = x2d.to(torch.float32).reshape(m, s, chunk)
+    r = rademacher_block(0, p, bits, seed, device=x.device).reshape(
+        s, chunk, bits)
+    acc = torch.zeros((s, m, bits), dtype=torch.float32, device=x.device)
+    for i in range(chunk):
+        acc = acc + x[:, :, i].T[:, :, None] * r[:, i][:, None, :]
+    out = torch.zeros((m, bits), dtype=torch.float32, device=x.device)
+    for k in range(s):
+        out = out + acc[k]
+    return out
+
+
 @functools.lru_cache(maxsize=16)
 def selection_lut(words: int, bits: int, gamma: float,
                   device=None) -> torch.Tensor:

@@ -284,6 +284,59 @@ def test_lsh_single_kernel_matches_plain_and_the_batched_row(cuda, p):
         assert torch.equal(k, rows[i])
 
 
+# every instance of the LSH kernels (single / few / many rows), both sides
+# of each split-length switch and of the 128-bit tile
+LSH_SPLIT_CASES = sorted(
+    {(m, 12_288, 256) for m in (1, 3, 16, 17, 35, 63, 64, 129, 256)}
+    | {(m, p, 256) for m in (1, 17, 129)
+       for p in (2048, 4096, 12_288, 268_288, 270_336)}
+    | {(m, 4096, bits) for m in (1, 17, 129) for bits in (32, 64, 256, 512)}
+    | {(256, 421_888, 256)})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,p,bits", LSH_SPLIT_CASES)
+def test_lsh_kernels_equal_the_split_order_twin(cuda, m, p, bits):
+    x = torch.randn((m, p), generator=_gen(m + p + bits), device=cuda) * 0.05
+    twin = ref.lsh_project_sums_split_order(
+        x, 9, bits=bits, chunk=lsh_projection.split_len(p))
+    k = lsh_projection.lsh_project_sums_batched(x, 9, bits=bits)
+    assert torch.equal(k, twin)
+    assert torch.equal(lsh_projection.lsh_project_sums_batched(x, 9,
+                                                               bits=bits), k)
+    one = torch.stack([lsh_projection.lsh_project_sums(x[i], 9, bits=bits)
+                       for i in range(m)])
+    assert torch.equal(one, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,p", [(300, 4096), (129, 270_336)])
+def test_lsh_row_groups_equal_one_launch(cuda, monkeypatch, m, p):
+    """A scratch cap of one 128-row group makes the batched wrapper
+    launch 128-row groups one by one; the sums stay the order twin's."""
+    x = torch.randn((m, p), generator=_gen(m + p), device=cuda) * 0.05
+    one = lsh_projection.lsh_project_sums_batched(x, 9)
+    row_bytes = 4 * (p // lsh_projection.split_len(p)) * 256
+    monkeypatch.setattr(lsh_projection, "PARTIAL_BYTES", 128 * row_bytes)
+    groups = lsh_projection.row_groups(m, p, 256)
+    assert groups[0] == (0, 128) and len(groups) > 1
+    n0 = lsh_projection.KERNEL.launches
+    k = lsh_projection.lsh_project_sums_batched(x, 9)
+    assert lsh_projection.KERNEL.launches - n0 == len(groups)
+    assert torch.equal(k, one)
+    assert torch.equal(k, ref.lsh_project_sums_split_order(
+        x, 9, bits=256, chunk=lsh_projection.split_len(p)))
+
+
+@pytest.mark.cuda
+def test_lsh_wrappers_reject_x_off_a_16_byte_boundary(cuda):
+    x = torch.zeros(2049, device=cuda)[1:]        # contiguous, 4 bytes off
+    with pytest.raises(ValueError, match="16-byte"):
+        lsh_projection.lsh_project_sums(x, 0)
+    with pytest.raises(ValueError, match="16-byte"):
+        lsh_projection.lsh_project_sums_batched(x[None], 0)
+
+
 @pytest.mark.cuda
 def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):
     g = _gen(1)
