@@ -16,8 +16,14 @@
    time per call from torch.profiler, and CUDA-event medians of whole
    calls after warm-up (`timings`). The column-tiled selection is also
    held against the one-shot kernel wherever that runs (to M = 46,489)
-   and checked at M = 65,536 past it; the streamed exchange is held
-   against both plain versions, up to a 100,352-class vocabulary; the
+   and checked at M = 65,536 past it; the one-shot exchange at the main
+   shape, at C = 1,024 and at the ANN federations' M = 4,096 and 65,536
+   (N = 16, R = 64, C = 10; the plain version's peak allocation
+   printed), the streamed exchange against both plain versions up to a
+   100,352-class vocabulary, each exchange launched twice and required
+   bit-identical, with the wrapper's launch plan (`oneshot_plan`,
+   `streamed_plan`) printed and its kernels timed as the plan launches
+   them; the
    ANN selection runs on `ann_candidates` at the defaults (prefix 10,
    probes 8): the main shape, all ties, clustered codes at M = 4096 and
    65,536, and with prefix_bits=0 against the one-shot kernel; the
@@ -114,8 +120,23 @@ BF16_FLOP_PER_S = 989e12
 # guide, arithmetic instruction throughput), at the H100 SXM's 1.98 GHz
 POPC_PER_S = 16 * 132 * 1.98e9
 HASH_OPS = 8            # integer operations of one Rademacher hash
-STREAMED_EXCHANGE_NAMES = ("exchange_stats_kernel", "exchange_mask_kernel",
-                           "exchange_target_kernel")
+STREAMED_EXCHANGE_NAMES = ("exchange_stats_kernel", "exchange_merge_kernel",
+                           "exchange_mask_kernel", "exchange_target_kernel")
+
+
+def streamed_exchange_names(exchange, m, n, r, c):
+    """The streamed wrapper's kernels at an (M, N, R, C) call, as its
+    `streamed_plan` says: the merge kernel where rows have many chunks
+    (`merged`), the target kernel unless the mask launch writes the
+    target (`fused`). A checkout without that plan launches stats, mask
+    and target."""
+    plan = getattr(exchange, "streamed_plan", None)
+    if plan is None:
+        return tuple(k for k in STREAMED_EXCHANGE_NAMES if "merge" not in k)
+    p = plan(m, n, r, c)
+    return tuple(k for k in STREAMED_EXCHANGE_NAMES
+                 if ("merge" not in k or p["merged"])
+                 and ("target" not in k or not p["fused"]))
 
 
 def time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
@@ -406,23 +427,46 @@ def exchange_bound(m, n, r, c):
     return bound(bytes_moved, 10.0 * m * n * r * c / F32_FLOP_PER_S)
 
 
+def same_bits(torch, a, b) -> bool:
+    """Two exchange results equal bit for bit (NaN where NaN)."""
+    return all(bool(torch.equal(x.nan_to_num(), z.nan_to_num())
+                    and torch.equal(x.isnan(), z.isnan()))
+               if x.is_floating_point() else bool(torch.equal(x, z))
+               for x, z in zip(a, b))
+
+
 def check_exchange(torch, m, n, r, c, gen, all_selected=False):
+    """The one-shot kernel against `all_in_one_exchange_ref`, launched
+    twice (bit-identical, else it raises), with its launch plan
+    (`exchange.oneshot_plan`) and the plain version's peak allocation."""
     from repro_torch.kernels import exchange, ref
     own, nb, y, sel = exchange_inputs(torch, m, n, r, c, gen, all_selected)
-    kl, kv, kt, kh = exchange.fused_exchange(own, nb, y, sel)
+    got = exchange.fused_exchange(own, nb, y, sel)
+    kl, kv, kt, kh = got
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     pl, pv, pt, ph = ref.all_in_one_exchange_ref(own, nb, y, sel)
     torch.cuda.synchronize()
+    plain_peak_bytes = torch.cuda.max_memory_allocated() - base
     torch.testing.assert_close(kl, pl, rtol=1e-5, atol=0.0)
     torch.testing.assert_close(kt, pt, rtol=1e-5, atol=1e-5)
     if not (torch.equal(kv, pv) and torch.equal(kh, ph)):
         raise AssertionError(f"exchange masks disagree at {(m, n, r, c)}")
+    err = max((kl - pl).abs().max().item(), (kt - pt).abs().max().item())
+    del pl, pv, pt, ph
+    if not same_bits(torch, got, exchange.fused_exchange(own, nb, y, sel)):
+        raise AssertionError(f"two exchange launches differ at "
+                             f"{(m, n, r, c)}")
     n0 = exchange.KERNEL.launches
     t = timings(lambda: exchange.fused_exchange(own, nb, y, sel),
                 ("fused_exchange_kernel",),
-                lambda: ref.all_in_one_exchange_ref(own, nb, y, sel))
+                lambda: ref.all_in_one_exchange_ref(own, nb, y, sel),
+                plain_iters=3 if m >= 4096 else 20)
     bms, by = exchange_bound(m, n, r, c)
-    err = max((kl - pl).abs().max().item(), (kt - pt).abs().max().item())
-    return dict(**t, max_abs_err=err, bound_ms=bms, bound_by=by,
+    return dict(**t, plan=exchange.oneshot_plan(m, n, r, c),
+                repeat_bit_equal=True, plain_peak_bytes=plain_peak_bytes,
+                max_abs_err=err, bound_ms=bms, bound_by=by,
                 launches=exchange.KERNEL.launches - n0)
 
 
@@ -432,7 +476,8 @@ def check_exchange_streamed(torch, m, n, r, c, gen, all_selected=False):
     same inputs is recorded beside it (`oneshot_ms`)."""
     from repro_torch.kernels import exchange, ref
     own, nb, y, sel = exchange_inputs(torch, m, n, r, c, gen, all_selected)
-    kl, kv, kt, kh = exchange.fused_exchange_streamed(own, nb, y, sel)
+    got = exchange.fused_exchange_streamed(own, nb, y, sel)
+    kl, kv, kt, kh = got
     err = 0.0
     for plain in (ref.streamed_exchange_ref, ref.all_in_one_exchange_ref):
         pl, pv, pt, ph = plain(own, nb, y, sel)
@@ -445,16 +490,25 @@ def check_exchange_streamed(torch, m, n, r, c, gen, all_selected=False):
         err = max(err, (kl - pl).abs().max().item(),
                   (kt - pt).abs().max().item())
         del pl, pv, pt, ph
+    if not same_bits(torch, got,
+                     exchange.fused_exchange_streamed(own, nb, y, sel)):
+        raise AssertionError(f"two streamed exchange launches differ at "
+                             f"{(m, n, r, c)}")
     oneshot_ms = device_ms(lambda: exchange.fused_exchange(own, nb, y, sel),
                            ("fused_exchange_kernel",))
     n0 = exchange.STREAMED_KERNEL.launches
     t = timings(lambda: exchange.fused_exchange_streamed(own, nb, y, sel),
-                STREAMED_EXCHANGE_NAMES,
+                streamed_exchange_names(exchange, m, n, r, c),
                 lambda: ref.streamed_exchange_ref(own, nb, y, sel),
                 plain_iters=2 if c > 8192 else 20)
     bms, by = exchange_bound(m, n, r, c)
-    return dict(**t, oneshot_ms=oneshot_ms, max_abs_err=err, bound_ms=bms,
-                bound_by=by, launches=exchange.STREAMED_KERNEL.launches - n0)
+    return dict(**t, oneshot_ms=oneshot_ms,
+                plan=exchange.streamed_plan(m, n, r, c),
+                repeat_bit_equal=True,
+                two_read_floor_ms=bms + 1e3 * 4.0 * m * n * r * c
+                / HBM_BYTES_PER_S,
+                max_abs_err=err, bound_ms=bms, bound_by=by,
+                launches=exchange.STREAMED_KERNEL.launches - n0)
 
 
 def clustered_codes(torch, m, bits, gen, per_cluster=32, flip=0.02):
@@ -1146,8 +1200,12 @@ def main() -> int:
         ("exchange", dict(m=10, n=9, r=64, c=10), True,
          lambda: check_exchange(torch, 10, 9, 64, 10, gen,
                                 all_selected=True)),
-        ("exchange", dict(m=8, n=16, r=64, c=1024), False,
-         lambda: check_exchange(torch, 8, 16, 64, 1024, gen)),
+    ] + [
+        ("exchange", dict(m=m, n=n, r=r, c=c), False,
+         lambda m=m, n=n, r=r, c=c: check_exchange(torch, m, n, r, c, gen))
+        for m, n, r, c in ((8, 16, 64, 1024), (4096, 16, 64, 10),
+                           (65_536, 16, 64, 10))
+    ] + [
         ("selection_tiled", dict(m=10, bits=256, n=9), True,
          lambda: check_selection_tiled(torch, 10, 256, 9, gen)),
         ("selection_tiled", dict(m=10, bits=256, n=9, ties=True), False,

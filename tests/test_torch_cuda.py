@@ -18,6 +18,8 @@ atol 1e-5; masks equal (and l_ij NaN where the plain version's is, for
 labels outside [-C, C)); flash attention max abs error 2e-5 in f32 and
 2e-2 in bf16 on unit-normal inputs.
 """
+import ctypes
+
 import pytest
 import torch
 
@@ -401,6 +403,171 @@ def test_exchange_kernel_reads_out_of_range_labels_as_plain(cuda):
     torch.testing.assert_close(kl, pl, rtol=1e-5, atol=0.0, equal_nan=True)
     torch.testing.assert_close(kt, pt, rtol=1e-5, atol=1e-5)
     assert torch.equal(kv, pv) and torch.equal(kh, ph)
+
+
+def _exchange_case(m, n, r, c, seed, tie=True):
+    """Inputs on the card: logits * 3, an exact KL tie (neighbour 1
+    repeated in slot 3, or 0 in slot 1 at N = 2), 80 % selected."""
+    g = _gen(seed)
+    own = torch.randn((m, r, c), generator=g, device="cuda") * 3
+    nb = torch.randn((m, n, r, c), generator=g, device="cuda") * 3
+    if tie and n >= 2:
+        nb[:, min(3, n - 1)] = nb[:, min(1, n - 2)]
+    y = torch.randint(0, c, (m, r), generator=g, device="cuda")
+    sel = torch.rand((m, n), generator=g, device="cuda") < 0.8
+    return own, nb, y, sel
+
+
+def _same_bits(a, b):
+    return all(torch.equal(x.nan_to_num(), z.nan_to_num())
+               and torch.equal(x.isnan(), z.isnan()) if x.is_floating_point()
+               else torch.equal(x, z) for x, z in zip(a, b))
+
+
+# one-shot shapes: (M, N, R, C), and the path each takes
+# (oneshot_plan: cluster, staged, lanes; TMA where R*C % 4 == 0; the
+# target from the owners' pieces in a staged cluster, else flat)
+ONESHOT_CASES = [
+    (10, 9, 64, 10),      # main: cluster 8, staged, 2 lanes, C % 4 != 0
+    (6, 1, 33, 17),       # N = 1: 2 CTAs over one neighbour's rows
+    (5, 16, 64, 10),      # N = 16, cluster 8
+    (600, 16, 64, 10),    # M fills the card: one CTA a client, staged,
+                          # one lane a row (unrolled)
+    (600, 3, 5, 3),       # one CTA, R*C % 4 != 0: flat scalar target
+    (3, 512, 5, 30),      # the N = 512 limit
+    (4, 9, 7, 3),         # R*C % 4 != 0: staged by a plain copy
+    (600, 16, 64, 16),    # C = 16: one lane, unrolled, float4 target
+    (3, 9, 16, 32),       # C = 32: 2 lanes, float4
+    (3, 9, 16, 100),      # C > 32, float4, staged
+    (2, 3, 40, 1001),     # C > 32, C % 4 != 0
+    (8, 16, 64, 1024),    # unstaged (the slab is 512 KB a CTA), float4
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,r,c", ONESHOT_CASES)
+@pytest.mark.parametrize("lsh_verification", [True, False])
+def test_oneshot_exchange_paths_match_plain_and_repeat(cuda, m, n, r, c,
+                                                       lsh_verification):
+    """Every path of the one-shot kernel against the plain version, and
+    a second launch bit-identical to the first."""
+    own, nb, y, sel = _exchange_case(m, n, r, c, seed=m + n + c)
+    got = exchange.fused_exchange(own, nb, y, sel,
+                                  lsh_verification=lsh_verification)
+    pl, pv, pt, ph = ref.all_in_one_exchange_ref(
+        own, nb, y, sel, lsh_verification=lsh_verification)
+    kl, kv, kt, kh = got
+    torch.testing.assert_close(kl, pl, rtol=1e-5, atol=0.0)
+    torch.testing.assert_close(kt, pt, rtol=1e-5, atol=1e-5)
+    assert torch.equal(kv, pv) and torch.equal(kh, ph)
+    assert _same_bits(got, exchange.fused_exchange(
+        own, nb, y, sel, lsh_verification=lsh_verification))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,r,c", [(10, 9, 64, 10), (5, 16, 64, 12),
+                                     (4, 9, 7, 3), (600, 16, 64, 10)])
+def test_oneshot_exchange_staged_equals_unstaged(cuda, monkeypatch, m, n, r,
+                                                 c):
+    """Rows held in shared memory (TMA or plain copy) and rows read from
+    device memory give the same bits."""
+    own, nb, y, sel = _exchange_case(m, n, r, c, seed=c)
+    assert exchange.oneshot_plan(m, n, r, c)["staged"]
+    staged = exchange.fused_exchange(own, nb, y, sel)
+    plan = exchange.oneshot_plan
+    monkeypatch.setattr(exchange, "oneshot_plan",
+                        lambda *a: {**plan(*a), "staged": False})
+    assert _same_bits(staged, exchange.fused_exchange(own, nb, y, sel))
+
+
+@pytest.mark.cuda
+def test_oneshot_layout_matches_the_kernel(cuda):
+    """The wrapper decides staging from `oneshot_layout_bytes`; the
+    kernel lays out its shared memory by its own `layout`."""
+    size = exchange.KERNEL.helper(
+        "fused_exchange_smem_bytes", [ctypes.c_int] * 6)
+    for n, r, c, q in ((9, 64, 10, 72), (16, 64, 1024, 128),
+                       (16, 64, 10, 1024), (512, 5, 30, 320), (1, 3, 7, 3)):
+        for staged in (True, False):
+            for lsh in (True, False):
+                assert size(n, r, c, q, staged, lsh) == \
+                    exchange.oneshot_layout_bytes(n, r, c, q, staged, lsh)
+
+
+# streamed shapes (streamed_plan): lanes < 32 with packed rows (C <= 128),
+# one chunk of 4 columns a lane, 512-column chunks from C = 512 (ragged,
+# C % 4 != 0), neighbours split over warps, rows of 16 chunks or more
+# merged in a launch of their own (C >= 8,192), the target in the mask
+# launch (R*C <= 4,096) or in its own, 16 bytes a load or not
+STREAMED_CASES = [(10, 9, 64, 10), (5, 1, 9, 3), (4, 16, 33, 32),
+                  (3, 9, 16, 100), (3, 16, 8, 513), (2, 9, 5, 2048),
+                  (2, 3, 7, 1001), (2, 2, 3, 8192), (2, 3, 4, 8200)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,r,c", STREAMED_CASES)
+@pytest.mark.parametrize("lsh_verification", [True, False])
+def test_streamed_exchange_paths_match_plain_and_repeat(cuda, m, n, r, c,
+                                                        lsh_verification):
+    own, nb, y, sel = _exchange_case(m, n, r, c, seed=m * c + n)
+    got = exchange.fused_exchange_streamed(
+        own, nb, y, sel, lsh_verification=lsh_verification)
+    kl, kv, kt, kh = got
+    for plain in (ref.streamed_exchange_ref, ref.all_in_one_exchange_ref):
+        pl, pv, pt, ph = plain(own, nb, y, sel,
+                               lsh_verification=lsh_verification)
+        torch.testing.assert_close(kl, pl, rtol=2e-5, atol=1e-5)
+        torch.testing.assert_close(kt, pt, rtol=2e-5, atol=1e-5)
+        assert torch.equal(kv, pv) and torch.equal(kh, ph)
+    assert _same_bits(got, exchange.fused_exchange_streamed(
+        own, nb, y, sel, lsh_verification=lsh_verification))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [6, 40, 1024])
+def test_exchange_kernels_read_out_of_range_labels_as_plain(cuda, c):
+    """Labels -1, C and -C-1 on the packed, the warp-per-row and the
+    unstaged one-shot paths, and on the streamed kernel (a label outside
+    [0, C) matches no column there, as in `streamed_exchange_ref`)."""
+    own, nb, y, sel = _exchange_case(8, 16, 64, c, seed=c)
+    y[0, 1], y[1, 2], y[2, 0] = -1, c, -c - 1
+    kl, kv, kt, kh = exchange.fused_exchange(own, nb, y, sel)
+    pl, pv, pt, ph = ref.all_in_one_exchange_ref(own, nb, y, sel)
+    assert bool(kl[1:3].isnan().all()) and bool(kl[[0, 3]].isfinite().all())
+    torch.testing.assert_close(kl, pl, rtol=1e-5, atol=0.0, equal_nan=True)
+    torch.testing.assert_close(kt, pt, rtol=1e-5, atol=1e-5)
+    assert torch.equal(kv, pv) and torch.equal(kh, ph)
+    kl, kv, kt, kh = exchange.fused_exchange_streamed(own, nb, y, sel)
+    pl, pv, pt, ph = ref.streamed_exchange_ref(own, nb, y, sel)
+    torch.testing.assert_close(kl, pl, rtol=2e-5, atol=1e-5)
+    torch.testing.assert_close(kt, pt, rtol=2e-5, atol=1e-5)
+    assert torch.equal(kv, pv) and torch.equal(kh, ph)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("streamed", [False, True])
+def test_exchange_kernels_on_empty_and_unselected_clients(cuda, streamed):
+    """M = 0 and N = 0 launch nothing; a client with no selected
+    neighbour gets no valid slot, a zero target and has_target False."""
+    fn = (exchange.fused_exchange_streamed if streamed
+          else exchange.fused_exchange)
+    kernel = exchange.STREAMED_KERNEL if streamed else exchange.KERNEL
+    before = kernel.launches
+    for m, n in ((0, 9), (4, 0)):
+        own, nb, y, sel = _exchange_case(m, n, 8, 10, seed=1, tie=False)
+        l_ij, valid, target, has = fn(own, nb, y, sel)
+        assert l_ij.shape == (m, n) and valid.shape == (m, n)
+        assert not bool(target.any()) and not bool(has.any())
+    assert kernel.launches == before
+    own, nb, y, sel = _exchange_case(4, 9, 64, 10, seed=2)
+    sel[2] = False
+    got = fn(own, nb, y, sel)
+    plain = (ref.streamed_exchange_ref if streamed
+             else ref.all_in_one_exchange_ref)(own, nb, y, sel)
+    assert not bool(got[1][2].any()) and not bool(got[2][2].any())
+    assert not bool(got[3][2]) and bool(got[3][[0, 1, 3]].all())
+    torch.testing.assert_close(got[0], plain[0], rtol=2e-5, atol=1e-5)
+    assert torch.equal(got[1], plain[1]) and torch.equal(got[3], plain[3])
 
 
 @pytest.mark.cuda
