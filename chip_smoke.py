@@ -14,7 +14,17 @@
    with the projection matrix materialised for the LSH kernels,
    torch.cdist(p=0) on unpacked bits for the Hamming kernel): device
    time per call from torch.profiler, and CUDA-event medians of whole
-   calls after warm-up (`timings`). The column-tiled selection is also
+   calls after warm-up (`timings`). Both exact selection kernels print
+   their launch plan (`selection.select_plan`), are launched twice and
+   required bit-identical, and are bounded on the route the TPU kernel
+   prices (the +-1 Gram's 2*M*M*W*32 int8 operations at 1,979 TOP/s;
+   `popc_bound_ms` beside it: M*M*W popcounts at 16 a clock an SM), with
+   `torch._int_mm` on the unpacked +-1 codes timed as a Gram-only
+   yardstick (`gram_library_ms`, never called by the port) where its
+   (M, M) product fits. The one-shot selection runs at the main shape,
+   at M = 1,024, 4,096, 16,384 and 46,489 (held past M = 8,192 against
+   `fused_select_tiled_ref` in 4096 x 4096 tiles), at N = 128 and at
+   N = 200 (the knockout instance). The column-tiled selection is also
    held against the one-shot kernel wherever that runs (to M = 46,489)
    and checked at M = 65,536 past it; the one-shot exchange at the main
    shape, at C = 1,024 and at the ANN federations' M = 4,096 and 65,536
@@ -106,16 +116,18 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 (non-tensor) FLOP/s,
-# and int32 operations/s (64 INT32 lanes per SM, half the 128 f32 lanes);
-# the tensor cores' dense TF32 and bf16 FLOP/s. An f32-accurate product
-# on the tensor cores takes three TF32 products (3xTF32), so f32 work runs
-# there at a third of the TF32 rate.
+# and int32 operations/s: 64 INT32 lanes per SM against 128 f32 lanes,
+# and the f32 rate counts an FMA as two operations, so a quarter of it;
+# the tensor cores' dense TF32, bf16 FLOP/s and int8 operations/s. An
+# f32-accurate product on the tensor cores takes three TF32 products
+# (3xTF32), so f32 work runs there at a third of the TF32 rate.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 INT32_OP_PER_S = F32_FLOP_PER_S / 4
 TF32_FLOP_PER_S = 495e12
 F32_3XTF32_FLOP_PER_S = TF32_FLOP_PER_S / 3
 BF16_FLOP_PER_S = 989e12
+INT8_OP_PER_S = 1979e12
 # __popc per SM per clock on compute capability 9.0 (CUDA programming
 # guide, arithmetic instruction throughput), at the H100 SXM's 1.98 GHz
 POPC_PER_S = 16 * 132 * 1.98e9
@@ -331,11 +343,47 @@ def selection_inputs(torch, m, bits, gen, ties):
 
 
 def selection_bound(m, w, n):
-    """Codes, scores, table and the (M, N) outputs once; 3*M*M*W integer
-    operations (XOR, popcount, add) at the int32 rate."""
+    """Codes, scores, table and the (M, N) outputs once; the +-1 Gram's
+    2*M*M*W*32 int8 operations at the tensor cores' dense rate (the
+    kernels' route)."""
     nsel = min(n, m - 1)
     bytes_moved = 4.0 * (m * w + m + w * 32 + 1) + 8.0 * m * nsel
-    return bound(bytes_moved, 3.0 * m * m * w / INT32_OP_PER_S)
+    return bound(bytes_moved, 2.0 * m * m * w * 32 / INT8_OP_PER_S)
+
+
+def popc_bound_ms(m, w):
+    """The XOR + popcount route's floor: M*M*W popcounts at 16 per SM per
+    clock (POPC_PER_S)."""
+    return m * m * w / POPC_PER_S * 1e3
+
+
+def selection_facts(torch, selection, codes, scores, bits, n, got, call,
+                    kernel_name):
+    """What both exact selection checks print: the wrapper's launch plan
+    (`selection.select_plan`, None in a checkout without one), a second
+    launch bit-identical to `got` (else it raises), the popcount route's
+    floor, and `torch._int_mm` on the unpacked +-1 codes as a Gram-only
+    yardstick (`gram_library_ms`, never called by the port; where the
+    (M, M) int32 product fits, M a multiple of 8, 1,024 <= M <= 16,384)."""
+    from repro_torch.kernels import ref
+    m, w = codes.shape
+    again = call()
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
+        raise AssertionError(f"two {kernel_name} launches differ at m={m}, "
+                             f"bits={bits}, n={n}")
+    plan = getattr(selection, "select_plan", None)
+    out = {"plan": plan(m, w, n) if plan else None, "repeat_bit_equal": True,
+           "popc_bound_ms": popc_bound_ms(m, w), "gram_library_ms": None}
+    if m % 8 == 0 and 1024 <= m <= 16_384:
+        a = ref.unpack_pm1(codes).to(torch.int8)
+        try:
+            out["gram_library_ms"] = library_device_ms(
+                lambda: torch._int_mm(a, a.t()))
+        except RuntimeError as e:        # a yardstick only: record why not
+            out["gram_library_error"] = str(e).splitlines()[0]
+        del a
+    return out
 
 
 def max_finite_diff(a, b) -> float:
@@ -344,45 +392,64 @@ def max_finite_diff(a, b) -> float:
     return finite.max().item() if finite.numel() else 0.0
 
 
+def selection_plain(ref, codes, scores, lut, n):
+    """The plain version a selection check holds a kernel to:
+    `fused_select_ref`, or past M = 8,192 `fused_select_tiled_ref` in
+    4096 x 4096 tiles, so its temporaries stay at a few GB."""
+    if codes.shape[0] > 8192:
+        return lambda: ref.fused_select_tiled_ref(
+            codes, scores, lut, num_neighbors=n, block_m=4096, block_k=4096)
+    return lambda: ref.fused_select_ref(codes, scores, lut, num_neighbors=n)
+
+
 def check_selection(torch, m, bits, n, gen, ties=False):
+    """The one-shot kernel against its plain version (`selection_plain`),
+    launched twice (bit-identical, else it raises), with its plan."""
     from repro_torch.kernels import ref, selection
     codes, scores = selection_inputs(torch, m, bits, gen, ties)
-    ki, kw = selection.fused_select(codes, scores, bits=bits, gamma=1.0,
-                                    num_neighbors=n)
+    call = lambda: selection.fused_select(          # noqa: E731
+        codes, scores, bits=bits, gamma=1.0, num_neighbors=n)
+    ki, kw = got = call()
     lut = ref.selection_lut(bits // 32, bits, 1.0, device=codes.device)
-    pi, pw = ref.fused_select_ref(codes, scores, lut, num_neighbors=n)
+    plain = selection_plain(ref, codes, scores, lut, n)
+    pi, pw = plain()
     torch.cuda.synchronize()
     if not (torch.equal(ki, pi) and torch.equal(kw, pw)):
         raise AssertionError(f"selection disagrees at m={m}, bits={bits}")
+    del pi
+    facts = selection_facts(torch, selection, codes, scores, bits, n, got,
+                            call, "fused_select_kernel")
     n0 = selection.KERNEL.launches
-    t = timings(lambda: selection.fused_select(
-                    codes, scores, bits=bits, gamma=1.0, num_neighbors=n),
-                ("fused_select_kernel",),
-                lambda: ref.fused_select_ref(codes, scores, lut,
-                                             num_neighbors=n))
+    t = timings(call, ("fused_select_kernel",), plain,
+                plain_iters=1 if m > 8192 else (3 if m >= 1024 else 20))
     bms, by = selection_bound(m, bits // 32, n)
-    return dict(**t, max_abs_err=max_finite_diff(kw, pw), bound_ms=bms,
-                bound_by=by, launches=selection.KERNEL.launches - n0)
+    return dict(**t, **facts, max_abs_err=max_finite_diff(kw, pw),
+                bound_ms=bms, bound_by=by,
+                launches=selection.KERNEL.launches - n0)
 
 
 def check_selection_tiled(torch, m, bits, n, gen, ties=False):
     """The column-tiled kernel against `fused_select_tiled_ref` (4096 x
     4096 tiles past M = 8192, so the plain version's temporaries stay at
-    a few GB) and, up to M = 46,489, against the one-shot kernel, whose
+    a few GB), launched twice (bit-identical, else it raises), with its
+    plan, and, up to M = 46,489, against the one-shot kernel, whose
     device time is recorded beside it (`oneshot_ms`)."""
     from repro_torch.kernels import ref, selection
     from repro_torch.kernels.build import MAX_SHARED_BYTES
     codes, scores = selection_inputs(torch, m, bits, gen, ties)
     blocks = (dict(block_m=4096, block_k=4096) if m > 8192 else {})
     lut = ref.selection_lut(bits // 32, bits, 1.0, device=codes.device)
-    ki, kw = selection.fused_select_tiled(codes, scores, bits=bits,
-                                          gamma=1.0, num_neighbors=n)
+    call = lambda: selection.fused_select_tiled(    # noqa: E731
+        codes, scores, bits=bits, gamma=1.0, num_neighbors=n)
+    ki, kw = got = call()
     pi, pw = ref.fused_select_tiled_ref(codes, scores, lut, num_neighbors=n,
                                         **blocks)
     torch.cuda.synchronize()
     if not (torch.equal(ki, pi) and torch.equal(kw, pw)):
         raise AssertionError(f"tiled selection disagrees with its plain "
                              f"version at m={m}, bits={bits}")
+    facts = selection_facts(torch, selection, codes, scores, bits, n, got,
+                            call, "select_tiled_kernel")
     out = {"oneshot_ms": None}
     if selection.oneshot_smem_bytes(m) <= MAX_SHARED_BYTES:
         oi, ow = selection.fused_select(codes, scores, bits=bits, gamma=1.0,
@@ -402,7 +469,7 @@ def check_selection_tiled(torch, m, bits, n, gen, ties=False):
                     codes, scores, lut, num_neighbors=n, **blocks),
                 plain_iters=1 if m > 8192 else (3 if m >= 1024 else 20))
     bms, by = selection_bound(m, bits // 32, n)
-    return dict(**t, **out, max_abs_err=max_finite_diff(kw, pw),
+    return dict(**t, **out, **facts, max_abs_err=max_finite_diff(kw, pw),
                 bound_ms=bms, bound_by=by,
                 launches=selection.TILED_KERNEL.launches - n0)
 
@@ -1197,6 +1264,12 @@ def main() -> int:
          lambda: check_selection(torch, 1024, 256, 16, gen)),
         ("selection", dict(m=768, bits=512, n=16), False,
          lambda: check_selection(torch, 768, 512, 16, gen)),
+    ] + [
+        ("selection", dict(m=m, bits=256, n=n), False,
+         lambda m=m, n=n: check_selection(torch, m, 256, n, gen))
+        for m, n in ((4096, 16), (16_384, 16), (46_489, 16), (1024, 128),
+                     (1024, 200))
+    ] + [
         ("exchange", dict(m=10, n=9, r=64, c=10), True,
          lambda: check_exchange(torch, 10, 9, 64, 10, gen,
                                 all_selected=True)),
@@ -1325,7 +1398,7 @@ def main() -> int:
                       "src/repro/kernels/selection.py:180"),
         "exchange": ("src/repro_torch/kernels/csrc/exchange.cu",
                      "src/repro/kernels/exchange.py:153"),
-        "selection_tiled": ("src/repro_torch/kernels/csrc/selection_tiled.cu",
+        "selection_tiled": ("src/repro_torch/kernels/csrc/selection.cu",
                             "src/repro/kernels/selection.py:271"),
         "exchange_streamed": (
             "src/repro_torch/kernels/csrc/exchange_streamed.cu",

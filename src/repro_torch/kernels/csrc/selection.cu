@@ -1,30 +1,485 @@
-// Fused peer selection (WPFed Eq. 6-8 + top-N) for Hopper (sm_90a).
+// Exact peer selection (WPFed Eq. 6-8 + top-N) for Hopper (sm_90a): the
+// one-shot and the column-tiled entry points, one design.
 //
-// Replaces repro/kernels/selection.py:fused_select (_select_kernel). Per
-// client row i: Hamming distances d_ij to every code by XOR + __popc over
-// the W packed words (exact integers, as the TPU kernel's +-1 Gram is),
-// weights w_ij = s_j * LUT[d_ij] with the Table-3 switches, self and
-// out-of-range columns at -inf, then the top N weights by repeated
-// first-max knockout: the largest weight, ties to the smallest id, as
-// jax.lax.top_k breaks them. The LUT is the (W*32+1)-entry table
-// exp(-gamma * d / bits) built once by the wrapper and shared with the
-// plain version, so weights are identical to it bit for bit; the kernel
-// calls no exp of its own.
+// Replaces repro/kernels/selection.py:fused_select (_select_kernel) and
+// repro/kernels/selection.py:fused_select_tiled (_select_tiled_kernel).
+// For every client row i: the Hamming distance d_ij to every code, the
+// weight w_ij = s_j * LUT[d_ij] under the Table-3 switches (use_rank off:
+// LUT[d_ij]; use_lsh off: s_j, or 1 with both off), self at -inf, and the
+// top N by weight descending, then id ascending (jax.lax.top_k's order).
+// The LUT is the wrapper's (W*32+1)-entry exp table, shared with the plain
+// versions, so weights equal theirs bit for bit; no exp runs here.
 //
-// Bound on the H100: it reads M*W*4 bytes of codes and M*4 of scores and
-// does M*M*W XOR+popcount pairs; at the main path's M=10, W=8 both are far
-// below a microsecond and the time is launch latency. At M ~ 10^3 the
-// M*M*W integer operations and the N block-wide reductions per row
-// dominate. One block per row keeps the row's M weights in shared memory
-// (M*5 bytes), so no (M, M) array reaches device memory.
+// Bound on the H100: the 2*M*M*W*32 operations of the TPU kernel's +-1
+// Gram at the int8 tensor-core rate (1,979 TOP/s dense: 1.1 ms at
+// M=65,536, W=8), and the M*M epilogue (a table read, a product, a
+// compare per pair); the codes are M*W*4 bytes. At the main path's M=10
+// it is launch latency.
+//
+// The design:
+// - Distances on the tensor cores, exactly. The TPU kernel takes the +-1
+//   Gram on the MXU (d = (W*32 - dot) / 2). Here the binary tensor-core
+//   product mma.sync.m16n8k256 .b1 .and.popc takes popc(a & b) over 256
+//   bits a step straight from the packed codes, and
+//   d = popc(a) + popc(b) - 2 * popc(a & b), exact integers. An int8 +-1
+//   Gram through mma.m16n8k32 (the codes unpacked in shared memory) gives
+//   the same bits and ran slower on the H100 at every shape timed. Codes
+//   are padded with zero words to KW, a multiple of 8 words (one k256 step each; 8, 16 or 32, one
+//   template instance each); zero words add nothing to any popcount.
+//   Word k of a row or column is the k-chunk it feeds: lane group tig
+//   holds words 8s + tig (a0/a1, b0) and 8s + 4 + tig (a2/a3, b1) of step
+//   s, the fragment layouts of m16n8k256.
+// - A CTA of 1-4 warps owns a tile of rows, 32 a warp (two m16 tiles), a
+//   multiple of 16. A warp's own rows' words and popcounts stay in
+//   registers. The CTA walks its columns in ascending id in tiles of
+//   BK = 64 codes and scores, brought into shared memory by cp.async, two
+//   stages, the next tile in flight while this one is computed, and the
+//   tile's column popcounts once per CTA. Per 8 columns a lane reads two
+//   packed words a step and feeds two mmas.
+// - Epilogue in registers: per pair the distance, one table read, one
+//   product by the score, one compare with the row's threshold (the row's
+//   last-ranked kept weight once it holds N, NaN before: every weight
+//   passes an unordered compare). Self, the ragged end and rows past M
+//   are handled only in the 8-column steps that touch them.
+// - Lists in shared memory, one per row, owned by one lane. When any lane
+//   of a warp has a candidate, the warp's weights go through an 8-column
+//   exchange tile and lane l takes local row l: its 8 columns in ascending
+//   id, each candidate filling a free slot or replacing the row's
+//   last-ranked entry (smallest weight, of equal ones the largest id),
+//   then the new last-ranked is found. Columns arrive in ascending id, so
+//   a weight equal to the last-ranked one ranks after it and is not
+//   taken: the list is the top N of the columns seen. Once the lists are
+//   full, most pairs cost one compare.
+// - Filling the card (selection.py:select_plan, from M, W, N alone): CTAs
+//   of fewer warps while M leaves SMs empty, then the columns split over
+//   S <= 8 CTAs of a thread-block cluster, each walking one contiguous
+//   range. Each lane then sorts its row (one split: writes each entry to
+//   its rank; several: sorts in place); after a cluster barrier each CTA
+//   merges 1/S of the rows, 8 lanes a row reading the S sorted lists
+//   through distributed shared memory, ties to the earlier split (the
+//   smaller ids). That is exactly the top N of the whole row, so the bits
+//   do not depend on S.
+// - N > 128 or W > 32 (the one-shot entry point only; the plan picks it by
+//   shape): one block of 256 threads per row, the row's weights and a
+//   taken bit per column in shared memory and N first-max knockout passes
+//   (distances by XOR + popcount).
+// Nothing is atomic and every list sees its columns in one order, so a
+// launch gives the same bits every time.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int NONE = 0x7fffffff;  // "no candidate" index
+constexpr int BK = 64;               // columns per staged tile
+constexpr int T = 2;                 // m16 row tiles a warp holds
+constexpr int MAX_WARPS = 4;
+constexpr int MAX_SPLITS = 8;        // the portable cluster size
+constexpr int MAX_NSEL = 128;
+constexpr int KNOCK_THREADS = 256;   // knockout instance
+constexpr int NONE = 0x7fffffff;     // "no candidate" index
+
+struct Args {
+  const uint32_t* codes;   // (m, w) packed bits
+  const float* scores;     // (m,)
+  const float* lut;        // (w*32 + 1,)
+  int m, w, nsel, use_lsh, use_rank;
+  int rows, splits, split_len;   // the plan (mma instances)
+  int* ids_out;            // (m, nsel)
+  float* w_out;            // (m, nsel)
+};
+
+// Words a staged column takes in shared memory: an odd multiple of 4, so
+// the 8 columns x 4 words an mma step reads fall in 32 banks.
+__host__ __device__ constexpr int word_stride(int kw) { return kw + 4; }
+
+// Words between two rows' lists: N rounded up to 4, then to an odd
+// multiple of 4, so the 8 lanes of a 16-byte access phase hit 8 banks.
+__host__ __device__ constexpr int row_stride(int nsel) {
+  return 4 * (((nsel + 3) / 4) | 1);
+}
+
+// Dynamic shared memory of an mma CTA, in 4-byte words (mirrored by
+// selection.py:select_smem_bytes): the table (to 16 bytes), two stages of
+// BK codes and scores, the tile's column popcounts, the rows' lists
+// (values, ids; row_stride(N) a row), each warp's 8-column exchange tile
+// (8 words a row) and a count per row (for the merge).
+struct Layout {
+  int stage, codes0, pcol, list_v, list_i, tile, cnt, bytes;
+};
+
+__host__ __device__ inline Layout layout(int kw, int rows, int nsel) {
+  Layout l;
+  const int lut_words = (kw * 32 + 1 + 3) / 4 * 4;
+  l.stage = BK * word_stride(kw) + BK;
+  l.codes0 = lut_words;
+  l.pcol = lut_words + 2 * l.stage;
+  l.list_v = l.pcol + BK;
+  l.list_i = l.list_v + rows * row_stride(nsel);
+  l.tile = l.list_i + rows * row_stride(nsel);
+  l.cnt = l.tile + 8 * rows;
+  l.bytes = 4 * (l.cnt + rows);
+  return l;
+}
+
+// c += popc(a & b) over a 16 x 8 x 256-bit step.
+__device__ __forceinline__ void mma_and_popc(int (&c)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// (v1, i1) ranks before (v2, i2): larger weight, then smaller id.
+__device__ __forceinline__ bool ahead(float v1, int i1, float v2, int i2) {
+  return v1 > v2 || (v1 == v2 && i1 < i2);
+}
+
+// The slot of the last-ranked of a row's n kept entries (values lv, ids
+// li): the smallest weight, of equal ones the largest id.
+__device__ __forceinline__ int last_slot(const float* lv, const int* li,
+                                         int n) {
+  int ws = 0;
+  float wv = lv[0];
+  int wi = li[0];
+#pragma unroll 4
+  for (int q = 1; q < n; ++q) {
+    const float x = lv[q];
+    const int xi = li[q];
+    if (ahead(wv, wi, x, xi)) {
+      ws = q;
+      wv = x;
+      wi = xi;
+    }
+  }
+  return ws;
+}
+
+// FULL: both Table-3 switches on (the protocol's default), compiled
+// without the flags' branches.
+template <int KW, bool FULL>
+__device__ void select_mma(const Args& a) {
+  constexpr int ST = KW / 8;                  // k256 steps
+  constexpr int WP = word_stride(KW);
+  extern __shared__ __align__(16) uint32_t smem[];
+  const Layout L = layout(KW, a.rows, a.nsel);
+  float* lut_s = reinterpret_cast<float*>(smem);
+  int* pcol = reinterpret_cast<int*>(smem + L.pcol);
+  float* list_v = reinterpret_cast<float*>(smem + L.list_v);
+  int* list_i = reinterpret_cast<int*>(smem + L.list_i);
+  int* cnt_s = reinterpret_cast<int*>(smem + L.cnt);
+
+  const int rows = a.rows, stride = row_stride(a.nsel);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const int nthreads = blockDim.x;
+  const int split = blockIdx.x % a.splits;
+  const int row0 = (blockIdx.x / a.splits) * a.rows;
+  const int wr = warp * 16 * T;                 // warp's first local row
+  const int c_begin = min(a.m, split * a.split_len);
+  const int c_end = min(a.m, c_begin + a.split_len);
+  const int nsel = a.nsel, w = a.w;
+  const bool lsh = a.use_lsh != 0, rank = a.use_rank != 0;
+  const float nan = __int_as_float(0x7fc00000);
+
+  auto stage = [&](int tc0, int buf) {
+    uint32_t* cs = smem + L.codes0 + buf * L.stage;
+    float* ss = reinterpret_cast<float*>(cs + BK * WP);
+    const int nk = min(BK, c_end - tc0);
+    if (FULL || lsh) {
+      const uint32_t* src = a.codes + (size_t)tc0 * w;
+      for (int e = tid; e < nk * w; e += nthreads) {
+        const int col = e / w;
+        cp_async4(cs + col * WP + (e - col * w), src + e);
+      }
+    }
+    if (FULL || rank)
+      for (int e = tid; e < nk; e += nthreads)
+        cp_async4(ss + e, a.scores + tc0 + e);
+    cp_async_commit();
+  };
+
+  // the first tile is in flight while the table and the rows load
+  const int ntiles = (c_end - c_begin + BK - 1) / BK;
+  if (ntiles > 0) stage(c_begin, 0);
+#pragma unroll 16
+  for (int d = tid; d <= w * 32; d += nthreads) lut_s[d] = __ldg(a.lut + d);
+  if ((FULL || lsh) && w < KW) {  // padding words of both stages
+    for (int e = tid; e < 2 * BK * (KW - w); e += nthreads) {
+      const int s = e / (BK * (KW - w)), rest = e % (BK * (KW - w));
+      smem[L.codes0 + s * L.stage + (rest / (KW - w)) * WP + w +
+           rest % (KW - w)] = 0u;
+    }
+  }
+
+  // this warp's rows: A fragments (words 8s + tig and 8s + 4 + tig of
+  // rows g and g + 8 of each m16 tile) and popcounts, once
+  uint32_t af[T][ST][4];
+  int prow[T][2];
+#pragma unroll
+  for (int t = 0; t < T; ++t) {
+    const int rlo = row0 + wr + 16 * t + g, rhi = rlo + 8;
+    prow[t][0] = prow[t][1] = 0;
+#pragma unroll
+    for (int k = 0; k < KW; ++k) {
+      const bool in = (FULL || lsh) && k < w;
+      const uint32_t xl = in && rlo < a.m ? a.codes[(size_t)rlo * w + k] : 0u;
+      const uint32_t xh = in && rhi < a.m ? a.codes[(size_t)rhi * w + k] : 0u;
+      prow[t][0] += __popc(xl);
+      prow[t][1] += __popc(xh);
+      if ((k & 3) == tig) {
+        af[t][k / 8][(k & 4) ? 2 : 0] = xl;
+        af[t][k / 8][(k & 4) ? 3 : 1] = xh;
+      }
+    }
+  }
+  float thr[T][2];         // thresholds of this lane's fragment rows
+#pragma unroll
+  for (int t = 0; t < T; ++t) thr[t][0] = thr[t][1] = nan;
+  // local row wr + lane is this lane's alone: its list's count,
+  // threshold and last-ranked slot
+  int cnt_own = 0, last_own = 0;
+  float thr_own = nan;
+  float* tile = reinterpret_cast<float*>(smem + L.tile) + wr * 8;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int tc0 = c_begin + it * BK;
+    if (it + 1 < ntiles) {
+      stage(tc0 + BK, (it + 1) & 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    uint32_t* cs = smem + L.codes0 + (it & 1) * L.stage;
+    const float* ss = reinterpret_cast<const float*>(cs + BK * WP);
+    const int nk = min(BK, c_end - tc0);
+    if (FULL || lsh) {
+      // the tile's column popcounts, once for the CTA; the columns past
+      // the ragged end as a zero code, so every distance indexes the table
+      for (int col = tid; col < ((nk + 7) & ~7); col += nthreads) {
+        int pc = 0;
+#pragma unroll
+        for (int k = 0; k < KW; ++k) {
+          if (col >= nk) cs[col * WP + k] = 0u;
+          pc += __popc(cs[col * WP + k]);
+        }
+        pcol[col] = pc;
+      }
+      __syncthreads();
+    }
+    for (int n0 = 0; n0 < nk; n0 += 8) {
+      int acc[T][4];
+#pragma unroll
+      for (int t = 0; t < T; ++t) acc[t][0] = acc[t][1] = acc[t][2] =
+          acc[t][3] = 0;
+      if (FULL || lsh) {
+        __syncwarp();        // mma.sync.aligned: the whole warp, converged
+#pragma unroll
+        for (int st = 0; st < ST; ++st) {
+          const uint32_t b0 = cs[(n0 + g) * WP + 8 * st + tig];
+          const uint32_t b1 = cs[(n0 + g) * WP + 8 * st + 4 + tig];
+#pragma unroll
+          for (int t = 0; t < T; ++t)
+            mma_and_popc(acc[t], af[t][st], b0, b1);
+        }
+      }
+      // the epilogue: weights, candidates, lists
+      const int j0 = tc0 + n0;
+      const int2 pc = *reinterpret_cast<const int2*>(pcol + n0 + 2 * tig);
+      const float2 s = (FULL || rank) ? *reinterpret_cast<const float2*>(
+                                            ss + n0 + 2 * tig)
+                                      : make_float2(1.0f, 1.0f);
+      // self, the split's ragged end and rows past M only where they occur
+      const bool edge = j0 + 8 > c_end || row0 + wr + 16 * T > a.m ||
+                        (j0 < row0 + wr + 16 * T && j0 + 8 > row0 + wr);
+      float v[T][4];
+      bool cand[T][4];
+      bool any = false;
+      if (FULL && !edge) {
+#pragma unroll
+        for (int t = 0; t < T; ++t) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int d = prow[t][i >> 1] + ((i & 1) ? pc.y : pc.x) -
+                          2 * acc[t][i];
+            v[t][i] = ((i & 1) ? s.y : s.x) * lut_s[d];
+            cand[t][i] = !(v[t][i] <= thr[t][i >> 1]);
+            any |= cand[t][i];
+          }
+        }
+      } else {
+#pragma unroll
+        for (int t = 0; t < T; ++t) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float sc = (i & 1) ? s.y : s.x;
+            float x = sc;
+            if (FULL || lsh) {
+              const int d = prow[t][i >> 1] + ((i & 1) ? pc.y : pc.x) -
+                            2 * acc[t][i];
+              const float l = lut_s[d];
+              x = (FULL || rank) ? sc * l : l;
+            }
+            const int row = row0 + wr + 16 * t + g + (i >> 1) * 8;
+            const int col = j0 + 2 * tig + (i & 1);
+            if (col == row) x = -INFINITY;
+            v[t][i] = x;
+            cand[t][i] = col < c_end && row < a.m && !(x <= thr[t][i >> 1]);
+            any |= cand[t][i];
+          }
+        }
+      }
+      if (__any_sync(0xffffffffu, any)) {
+        // through the warp's tile: lane l takes local row wr + l, its 8
+        // columns in ascending id; a candidate fills a free slot or
+        // replaces the row's last-ranked entry, then the new last is found
+#pragma unroll
+        for (int t = 0; t < T; ++t)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            tile[(16 * t + g + (i >> 1) * 8) * 8 + 2 * tig + (i & 1)] =
+                v[t][i];
+        __syncwarp();
+        if (row0 + wr + lane < a.m) {
+          float* lv = list_v + (wr + lane) * stride;
+          int* li = list_i + (wr + lane) * stride;
+          const float4 lo = *reinterpret_cast<const float4*>(tile + lane * 8);
+          const float4 hi =
+              *reinterpret_cast<const float4*>(tile + lane * 8 + 4);
+          const float x[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+          const int ncol = min(8, c_end - j0);
+#pragma unroll
+          for (int c = 0; c < 8; ++c) {
+            if (c < ncol && !(x[c] <= thr_own)) {
+              const int slot = cnt_own < nsel ? cnt_own++ : last_own;
+              lv[slot] = x[c];
+              li[slot] = j0 + c;
+              if (cnt_own == nsel) {
+                last_own = last_slot(lv, li, nsel);
+                thr_own = lv[last_own];
+              }
+            }
+          }
+        }
+        // the fragment rows' thresholds, from their owner lanes
+#pragma unroll
+        for (int t = 0; t < T; ++t) {
+          thr[t][0] = __shfl_sync(0xffffffffu, thr_own, 16 * t + g);
+          thr[t][1] = __shfl_sync(0xffffffffu, thr_own, 16 * t + g + 8);
+        }
+      }
+    }
+    __syncthreads();        // this stage is free for the tile after next
+  }
+
+  if (a.splits == 1) {
+    // one split: each lane writes its row's N entries straight to their
+    // ranks (the count of entries ahead of each)
+    if (row0 + wr + lane < a.m) {
+      const float* lv = list_v + (wr + lane) * stride;
+      const int* li = list_i + (wr + lane) * stride;
+      const size_t out = (size_t)(row0 + wr + lane) * nsel;
+      for (int e = 0; e < nsel; ++e) {
+        const float ve = lv[e];
+        const int ie = li[e];
+        int rank = 0;
+#pragma unroll 4
+        for (int f = 0; f < nsel; ++f) rank += ahead(lv[f], li[f], ve, ie);
+        a.ids_out[out + rank] = ie;
+        a.w_out[out + rank] = ve;
+      }
+    }
+    return;
+  }
+  // each lane sorts its row in place, best first, for the merge (an
+  // insertion sort under the total order), and publishes its count
+  if (row0 + wr + lane < a.m) {
+    float* lv = list_v + (wr + lane) * stride;
+    int* li = list_i + (wr + lane) * stride;
+    for (int e = 1; e < cnt_own; ++e) {
+      const float ve = lv[e];
+      const int ie = li[e];
+      int p = e;
+      for (; p > 0 && ahead(ve, ie, lv[p - 1], li[p - 1]); --p) {
+        lv[p] = lv[p - 1];
+        li[p] = li[p - 1];
+      }
+      lv[p] = ve;
+      li[p] = ie;
+    }
+  }
+  cnt_s[wr + lane] = cnt_own;
+  const int live = min(rows, a.m - row0);
+  // merge the S column splits of each of this CTA's 1/S of the rows: 8
+  // lanes a row, lane q walking split q's sorted list through distributed
+  // shared memory; each step the group's best head (weight, then id: ids
+  // are unique across splits, so ties go to the earlier split) is written
+  // and its lane advances
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int S = a.splits;
+  const int per = (rows + S - 1) / S;
+  const int r_hi = min(live, (split + 1) * per);
+  const int q = tid & 7;
+  const unsigned gmask = 0xffu << (lane & 24);
+  for (int r = split * per + (tid >> 3); r < r_hi; r += nthreads >> 3) {
+    const float* rv = q < S ? cluster.map_shared_rank(list_v, q) + r * stride
+                            : nullptr;
+    const int* ri = q < S ? cluster.map_shared_rank(list_i, q) + r * stride
+                          : nullptr;
+    const int cn = q < S ? *cluster.map_shared_rank(cnt_s + r, q) : 0;
+    int head = 0;
+    float hv = cn > 0 ? rv[0] : -INFINITY;
+    int hi = cn > 0 ? ri[0] : NONE;
+    const size_t out = (size_t)(row0 + r) * nsel;
+    for (int p = 0; p < nsel; ++p) {
+      float bv = hv;
+      int bi = hi;
+#pragma unroll
+      for (int off = 4; off > 0; off >>= 1) {
+        const float ov = __shfl_xor_sync(gmask, bv, off, 8);
+        const int oi = __shfl_xor_sync(gmask, bi, off, 8);
+        if (ahead(ov, oi, bv, bi)) {
+          bv = ov;
+          bi = oi;
+        }
+      }
+      if (q == 0) {
+        a.ids_out[out + p] = bi;
+        a.w_out[out + p] = bv;
+      }
+      if (hi == bi) {
+        ++head;
+        hv = head < cn ? rv[head] : -INFINITY;
+        hi = head < cn ? ri[head] : NONE;
+      }
+    }
+  }
+  cluster.sync();           // no CTA leaves while another reads its lists
+}
 
 // (v1, i1) ranks before (v2, i2): larger weight, then smaller id.
 __device__ __forceinline__ bool before(float v1, int i1, float v2, int i2) {
@@ -33,44 +488,49 @@ __device__ __forceinline__ bool before(float v1, int i1, float v2, int i2) {
   return v1 > v2 || (v1 == v2 && i1 < i2);
 }
 
-__global__ void __launch_bounds__(THREADS)
-fused_select_kernel(const uint32_t* __restrict__ codes,
-                    const float* __restrict__ scores,
-                    const float* __restrict__ lut, int m, int w, int nsel,
-                    int use_lsh, int use_rank, int* __restrict__ ids_out,
-                    float* __restrict__ w_out) {
-  extern __shared__ float wrow[];                       // m weights
-  unsigned char* taken = reinterpret_cast<unsigned char*>(wrow + m);
-  __shared__ float red_v[THREADS / 32];
-  __shared__ int red_i[THREADS / 32];
+// N > 128 or W > 32: one block per row, the row's weights and a taken
+// bit per column in shared memory (knockout_smem_bytes), N first-max
+// knockout passes (distances by XOR + popcount).
+__host__ __device__ inline size_t knockout_smem_bytes(int m) {
+  return 4 * ((size_t)m + (m + 31) / 32);
+}
 
-  const int i = blockIdx.x;
+__device__ void select_knockout(const Args& a) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  float* wrow = reinterpret_cast<float*>(smem);               // m weights
+  uint32_t* taken = smem + a.m;                               // m bits
+  __shared__ float red_v[KNOCK_THREADS / 32];
+  __shared__ int red_i[KNOCK_THREADS / 32];
+
+  const int i = blockIdx.x, m = a.m, w = a.w, nsel = a.nsel;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const uint32_t* a = codes + (size_t)i * w;
+  const uint32_t* ci = a.codes + (size_t)i * w;
 
-  for (int j = threadIdx.x; j < m; j += THREADS) {
+  for (int j = threadIdx.x; j < m; j += KNOCK_THREADS) {
     float v;
     if (j == i) {
       v = -INFINITY;
     } else {
-      v = use_rank ? scores[j] : 1.0f;
-      if (use_lsh) {
-        const uint32_t* b = codes + (size_t)j * w;
+      v = a.use_rank ? a.scores[j] : 1.0f;
+      if (a.use_lsh) {
+        const uint32_t* cj = a.codes + (size_t)j * w;
         int d = 0;
-        for (int k = 0; k < w; ++k) d += __popc(a[k] ^ b[k]);
-        v = v * lut[d];
+        for (int k = 0; k < w; ++k) d += __popc(ci[k] ^ cj[k]);
+        v = v * a.lut[d];
       }
     }
     wrow[j] = v;
-    taken[j] = 0;
   }
+  for (int k = threadIdx.x; k < (m + 31) / 32; k += KNOCK_THREADS)
+    taken[k] = 0u;
   __syncthreads();
 
   for (int t = 0; t < nsel; ++t) {
     float bv = -INFINITY;
     int bi = NONE;
-    for (int j = threadIdx.x; j < m; j += THREADS) {
-      if (!taken[j] && before(wrow[j], j, bv, bi)) {
+    for (int j = threadIdx.x; j < m; j += KNOCK_THREADS) {
+      if (!((taken[j >> 5] >> (j & 31)) & 1u) &&
+          before(wrow[j], j, bv, bi)) {
         bv = wrow[j];
         bi = j;
       }
@@ -89,40 +549,141 @@ fused_select_kernel(const uint32_t* __restrict__ codes,
     }
     __syncthreads();
     if (threadIdx.x == 0) {
-      for (int k = 1; k < THREADS / 32; ++k) {
+      for (int k = 1; k < KNOCK_THREADS / 32; ++k) {
         if (before(red_v[k], red_i[k], bv, bi)) {
           bv = red_v[k];
           bi = red_i[k];
         }
       }
-      ids_out[(size_t)i * nsel + t] = bi;
-      w_out[(size_t)i * nsel + t] = bv;
-      if (bi != NONE) taken[bi] = 1;
+      a.ids_out[(size_t)i * nsel + t] = bi;
+      a.w_out[(size_t)i * nsel + t] = bv;
+      if (bi != NONE) taken[bi >> 5] |= 1u << (bi & 31);
     }
     __syncthreads();
   }
 }
 
-}  // namespace
+// The one-shot entry point's kernels: KW > 0 the mma instances, 0 the
+// knockout instance.
+template <int KW, bool FULL>
+__global__ void __launch_bounds__(KW == 0 ? KNOCK_THREADS : 32 * MAX_WARPS)
+fused_select_kernel(Args a) {
+  if constexpr (KW == 0) {
+    select_knockout(a);
+  } else {
+    select_mma<KW, FULL>(a);
+  }
+}
 
-// codes: (m, w) uint32 bit patterns; scores: (m,) f32; lut: (w*32+1,) f32;
-// ids_out: (m, nsel) int32; w_out: (m, nsel) f32; 1 <= nsel <= m - 1.
-// Returns cudaGetLastError() after launching.
-extern "C" int fused_select(const void* codes, const float* scores,
-                            const float* lut, int m, int w, int nsel,
-                            int use_lsh, int use_rank, int* ids_out,
-                            float* w_out, int device, void* stream) {
+// The column-tiled entry point's kernels (the same mma design).
+template <int KW, bool FULL>
+__global__ void __launch_bounds__(32 * MAX_WARPS) select_tiled_kernel(Args a) {
+  select_mma<KW, FULL>(a);
+}
+
+template <int KW, bool TILED, bool FULL>
+cudaError_t launch_mma(const Args& a, size_t smem_bytes, cudaStream_t stream) {
+  void (*kernel)(Args) = TILED ? select_tiled_kernel<KW, FULL>
+                               : fused_select_kernel<KW, FULL>;
+  if (smem_bytes > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
+    if (err != cudaSuccess) return err;
+  }
+  const int warps = a.rows / (16 * T);
+  const int row_ctas = (a.m + a.rows - 1) / a.rows;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(row_ctas * a.splits));
+  cfg.blockDim = dim3(32 * warps);
+  cfg.dynamicSmemBytes = smem_bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = a.splits > 1 ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, a);
+}
+
+template <bool TILED>
+int launch(const void* codes, const float* scores, const float* lut, int m,
+           int w, int nsel, int use_lsh, int use_rank, int kw, int rows,
+           int splits, int split_len, int* ids_out, float* w_out, int device,
+           void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = (size_t)m * (sizeof(float) + 1);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(fused_select_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
+  const Args a = {static_cast<const uint32_t*>(codes), scores, lut, m, w,
+                  nsel, use_lsh, use_rank, rows, splits, split_len, ids_out,
+                  w_out};
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (m < 2 || nsel < 1 || nsel > m - 1 || w < 1)
+    return (int)cudaErrorInvalidValue;
+  if (kw == 0) {                       // knockout: one-shot entry only
+    if (TILED) return (int)cudaErrorInvalidValue;
+    const size_t smem_bytes = knockout_smem_bytes(m);
+    if (smem_bytes > 48 * 1024) {
+      err = cudaFuncSetAttribute(fused_select_kernel<0, false>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem_bytes);
+      if (err != cudaSuccess) return (int)err;
+    }
+    fused_select_kernel<0, false><<<m, KNOCK_THREADS, smem_bytes, s>>>(a);
+    return (int)cudaGetLastError();
   }
-  fused_select_kernel<<<m, THREADS, smem, (cudaStream_t)stream>>>(
-      static_cast<const uint32_t*>(codes), scores, lut, m, w, nsel, use_lsh,
-      use_rank, ids_out, w_out);
+  const int unit = 16 * T;
+  if ((kw != 8 && kw != 16 && kw != 32) || w > kw || nsel > MAX_NSEL ||
+      rows < unit || rows % unit || rows / unit > MAX_WARPS || splits < 1 ||
+      splits > MAX_SPLITS || split_len < 1 ||
+      (long long)splits * split_len < m)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem_bytes = layout(kw, rows, nsel).bytes;
+  const bool full = use_lsh && use_rank;
+  switch (kw * 2 + full) {
+    case 16: err = launch_mma<8, TILED, false>(a, smem_bytes, s); break;
+    case 17: err = launch_mma<8, TILED, true>(a, smem_bytes, s); break;
+    case 32: err = launch_mma<16, TILED, false>(a, smem_bytes, s); break;
+    case 33: err = launch_mma<16, TILED, true>(a, smem_bytes, s); break;
+    case 64: err = launch_mma<32, TILED, false>(a, smem_bytes, s); break;
+    default: err = launch_mma<32, TILED, true>(a, smem_bytes, s); break;
+  }
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Dynamic shared memory of one mma CTA of the plan (KW words, `rows`
+// rows, N = nsel); selection.py:select_smem_bytes mirrors it.
+extern "C" int select_smem_bytes(int kw, int rows, int nsel) {
+  return layout(kw, rows, nsel).bytes;
+}
+
+// codes: (m, w) uint32 bit patterns; scores: (m,) f32; lut: (w*32+1,) f32;
+// ids_out: (m, nsel) int32; w_out: (m, nsel) f32; 1 <= nsel <= m - 1. The
+// plan (kernels/selection.py:select_plan): kw, 8, 16 or 32 words >= w, for
+// the mma instance with `rows` rows a CTA (a multiple of 32, at most 128)
+// and the columns cut into `splits` ranges of `split_len` (nsel <= 128);
+// kw = 0 for the knockout instance (one block per row). Returns
+// cudaGetLastError() after launching.
+extern "C" int fused_select(const void* codes, const float* scores,
+                            const float* lut, int m, int w, int nsel,
+                            int use_lsh, int use_rank, int kw, int rows,
+                            int splits, int split_len, int* ids_out,
+                            float* w_out, int device, void* stream) {
+  return launch<false>(codes, scores, lut, m, w, nsel, use_lsh, use_rank, kw,
+                       rows, splits, split_len, ids_out, w_out, device,
+                       stream);
+}
+
+// The column-tiled entry point: the same arguments; the mma instance only.
+extern "C" int fused_select_tiled(const void* codes, const float* scores,
+                                  const float* lut, int m, int w, int nsel,
+                                  int use_lsh, int use_rank, int kw, int rows,
+                                  int splits, int split_len, int* ids_out,
+                                  float* w_out, int device, void* stream) {
+  return launch<true>(codes, scores, lut, m, w, nsel, use_lsh, use_rank, kw,
+                      rows, splits, split_len, ids_out, w_out, device,
+                      stream);
 }

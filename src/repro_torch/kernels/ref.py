@@ -97,18 +97,43 @@ def hamming_all_pairs_ref(codes_a: torch.Tensor,
     return out
 
 
+def unpack_pm1(codes: torch.Tensor) -> torch.Tensor:
+    """(M, W) packed codes -> (M, W*32) f32 in {-1, +1}, bit 1 -> +1, as
+    the JAX package's `unpack_pm1`."""
+    k = torch.arange(32, dtype=torch.int64, device=codes.device)
+    bits = (codes.to(torch.int64)[:, :, None] >> k) & 1
+    return (2.0 * bits.to(torch.float32) - 1.0).reshape(codes.shape[0], -1)
+
+
+def and_popc_distances(codes_a: torch.Tensor,
+                       codes_b: torch.Tensor) -> torch.Tensor:
+    """Hamming distances as the CUDA selection kernels take them on the
+    binary tensor cores: d = popc(a) + popc(b) - 2 popc(a & b), (Ma, Mb)
+    int64, BLOCK_ROWS rows at a time."""
+    pa = popcount_u32(codes_a).sum(-1, dtype=torch.int64)
+    pb = popcount_u32(codes_b).sum(-1, dtype=torch.int64)
+    both = torch.empty((codes_a.shape[0], codes_b.shape[0]),
+                       dtype=torch.int64, device=codes_a.device)
+    for r0 in range(0, codes_a.shape[0], BLOCK_ROWS):
+        x = codes_a[r0:r0 + BLOCK_ROWS, None, :] & codes_b[None, :, :]
+        both[r0:r0 + BLOCK_ROWS] = popcount_u32(x).sum(-1, dtype=torch.int64)
+    return pa[:, None] + pb[None, :] - 2 * both
+
+
 def _eq8_weights(codes: torch.Tensor, scores: torch.Tensor,
                  lut: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
-                 use_lsh: bool, use_rank: bool) -> torch.Tensor:
+                 use_lsh: bool, use_rank: bool,
+                 distances=hamming_all_pairs_ref) -> torch.Tensor:
     """Eq. 8 weights w_ij = s_j * lut[d_ij] (Table-3 switches) of the
-    `rows` x `cols` client ids, self at -inf."""
+    `rows` x `cols` client ids, self at -inf; d = distances(codes[rows],
+    codes[cols]) (XOR + popcount by default)."""
     dev = codes.device
     if use_rank:
         w = scores.to(torch.float32)[cols][None, :].expand(len(rows), -1)
     else:
         w = torch.ones((len(rows), len(cols)), device=dev)
     if use_lsh:
-        d = hamming_all_pairs_ref(codes[rows], codes[cols])
+        d = distances(codes[rows], codes[cols])
         w = w * lut[d.to(torch.int64)]
     return torch.where(rows[:, None] == cols[None, :],
                        torch.tensor(-torch.inf, device=dev), w)
@@ -162,6 +187,54 @@ def fused_select_tiled_ref(codes: torch.Tensor, scores: torch.Tensor,
             run_w, order = run_w[:, :nsel], order[:, :nsel]
             run_i = torch.gather(cand_i, 1, order)
         ids[rows], top_w[rows] = run_i, run_w
+    return ids.to(torch.int32), top_w
+
+
+def fused_select_split_ref(codes: torch.Tensor, scores: torch.Tensor,
+                           lut: torch.Tensor, *, num_neighbors: int,
+                           rows: int, splits: int, split_len: int,
+                           block_k: int, use_lsh: bool = True,
+                           use_rank: bool = True):
+    """`fused_select_ref`'s contract in the order of the tensor-core
+    selection kernels (`selection.select_plan`): tiles of `rows` rows;
+    per tile the columns cut into `splits` ranges of `split_len`, each
+    walked in ascending tiles of `block_k` into a running top-N (the
+    running list first in a stable sort: an equal weight keeps the
+    smaller id); then the S lists merged in split order (a stable sort of
+    their concatenation: ties to the earlier split, the smaller ids).
+    Distances by the kernels' identity popc(a) + popc(b) - 2 popc(a & b).
+    Equal to `fused_select_ref` bit for bit at every plan; the tests hold
+    the kernels to it."""
+    m = codes.shape[0]
+    nsel = max(min(num_neighbors, m - 1), 0)
+    dev = codes.device
+    ids = torch.zeros((m, nsel), dtype=torch.int64, device=dev)
+    top_w = torch.zeros((m, nsel), dtype=torch.float32, device=dev)
+    for r0 in range(0, m if nsel else 0, rows):
+        rr = torch.arange(r0, min(r0 + rows, m), device=dev)
+        part_w, part_i = [], []
+        for s in range(splits):
+            c_begin = min(m, s * split_len)
+            c_end = min(m, c_begin + split_len)
+            run_w = torch.empty((len(rr), 0), device=dev)
+            run_i = torch.empty((len(rr), 0), dtype=torch.int64, device=dev)
+            for c0 in range(c_begin, c_end, block_k):
+                cols = torch.arange(c0, min(c0 + block_k, c_end), device=dev)
+                w = _eq8_weights(codes, scores, lut, rr, cols, use_lsh,
+                                 use_rank, and_popc_distances)
+                cand_i = torch.cat([run_i, cols.expand(len(rr), -1)], dim=1)
+                run_w, order = torch.sort(torch.cat([run_w, w], dim=1),
+                                          dim=1, descending=True,
+                                          stable=True)
+                run_w, order = run_w[:, :nsel], order[:, :nsel]
+                run_i = torch.gather(cand_i, 1, order)
+            part_w.append(run_w)
+            part_i.append(run_i)
+        all_i = torch.cat(part_i, dim=1)
+        all_w, order = torch.sort(torch.cat(part_w, dim=1), dim=1,
+                                  descending=True, stable=True)
+        ids[rr] = torch.gather(all_i, 1, order[:, :nsel])
+        top_w[rr] = all_w[:, :nsel]
     return ids.to(torch.int32), top_w
 
 

@@ -1,21 +1,30 @@
-"""Fused peer selection (WPFed Eq. 6-8 + top-N): wrappers of the one-shot
-and the column-tiled CUDA kernels.
+"""Fused peer selection (WPFed Eq. 6-8 + top-N): wrappers of the one-shot,
+the column-tiled and the ANN CUDA kernels, and the exact kernels' launch
+plan.
 
-Replaces the TPU kernel `repro/kernels/selection.py:fused_select`
-(`_select_kernel`). The kernel (`csrc/selection.cu`) runs one block per
-client row: XOR + popcount distances, weights gathered from the
-wrapper's exp table (so they equal the plain version's bit for bit),
-self at -inf, then top-N by first-max knockout with ascending-id ties.
-Its bound on the H100 at the main path's M=10 is launch latency; it
-keeps each row's weights in shared memory so no (M, M) array is
-written. Past M = MAX_SHARED_BYTES / 5 = 46,489 clients that row no
-longer fits one block's shared memory.
-
-`fused_select_tiled` replaces the TPU kernel
-`repro/kernels/selection.py:fused_select_tiled` (`_select_tiled_kernel`)
-with `csrc/selection_tiled.cu`: one thread per row, column tiles of
-codes staged in shared memory, a running top-N per row; shared memory
-does not grow with M. Its bound is the 3*M*M*W integer operations.
+`fused_select` and `fused_select_tiled` replace the TPU kernels
+`repro/kernels/selection.py:fused_select` (`_select_kernel`) and
+`fused_select_tiled` (`_select_tiled_kernel`) with one design in
+`csrc/selection.cu` (two entry points, two launch counts): Hamming
+distances on the tensor cores, exact integers from the binary product
+popc(a & b) over packed codes (`mma.sync` m16n8k256 .b1 .and.popc;
+d = popc(a) + popc(b) - 2 popc(a & b), where the TPU kernel takes the
++-1 Gram), weights gathered from the wrapper's exp table (so they equal
+the plain versions' bit for bit), self at -inf, and a running top-N per
+row in shared memory, filled in ascending column order with ascending-id
+ties. A CTA owns a tile of rows (a multiple of 16) and walks column
+tiles staged by cp.async; where M alone leaves SMs empty the columns
+split over a thread-block cluster whose lists merge in split order.
+Shared memory does not grow with M. `select_plan` (rows per CTA,
+splits, column tile, threads, shared bytes) is a function of (M, W, N)
+alone and changes no route: "auto" still switches at
+`oneshot_smem_bytes(m) = 5m` (the one-shot knockout instance's row,
+M = 46,489), which `backends.resolve_tiling` reads. The one-shot
+wrapper takes any N <= M - 1 and any W; past `TILED_MAX_NEIGHBORS` or
+`TILED_MAX_WORDS` the plan picks the knockout instance (one block per
+row, XOR + popcount, N first-max passes). The bound is the 2*M*M*W*32
+int8 operations of the TPU kernel's Gram and the per-pair epilogue; at
+the main path's M=10 it is launch latency.
 
 `fused_select_ann` replaces the TPU kernel
 `repro/kernels/selection.py:fused_select_ann` (`_select_ann_kernel`)
@@ -38,25 +47,111 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.build import MAX_SHARED_BYTES, CudaKernel
 
-KERNEL = CudaKernel(
-    "selection", "selection.cu", "fused_select",
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-     ctypes.c_void_p, ctypes.c_void_p])
+_EXACT_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
+               + [ctypes.c_void_p] * 2)
+KERNEL = CudaKernel("selection", "selection.cu", "fused_select", _EXACT_ARGS)
+TILED_KERNEL = CudaKernel("selection_tiled", "selection.cu",
+                          "fused_select_tiled", _EXACT_ARGS)
+TILED_MAX_NEIGHBORS = 128   # running top-N slots per row in shared memory
+TILED_MAX_WORDS = 32        # code words (1024 bits) per row
+
+# select_plan (csrc/selection.cu: BK, T, MAX_WARPS, MAX_SPLITS): columns
+# per staged tile; rows a warp holds (two m16 tiles); warps per CTA at
+# most; the portable cluster size; the SMs of the H100; the fewest columns
+# worth a split of their own
+BLOCK_K = 64
+ROWS_PER_WARP = 32
+MAX_WARPS = 4
+MAX_SPLITS = 8
+FILL_SMS = 132
+SPLIT_MIN_COLS = 128
+KNOCKOUT_THREADS = 256
 
 
 def oneshot_smem_bytes(m: int) -> int:
-    """Shared memory of one `csrc/selection.cu` block: a weight and a
-    taken flag per column."""
+    """The one-shot route's shared-memory figure, the one
+    `backends.resolve_tiling` compares with MAX_SHARED_BYTES: a weight
+    and a taken flag per column, the knockout instance's row (the mma
+    instance's shared memory does not grow with M)."""
     return 5 * m
+
+
+def knockout_smem_bytes(m: int) -> int:
+    """Dynamic shared memory of one knockout block (csrc/selection.cu):
+    the row's M weights and a taken bit per column, below the route's
+    `oneshot_smem_bytes(m)` with room for the block's 64 static bytes."""
+    return 4 * (m + -(-m // 32))
+
+
+def mma_words(w: int) -> int:
+    """KW: the instance's code words, W rounded up to 8, 16 or 32 (one
+    256-bit mma step per 8 words; zero words pad the codes and add
+    nothing to any popcount)."""
+    return 8 if w <= 8 else (16 if w <= 16 else 32)
+
+
+def row_stride(nsel: int) -> int:
+    """Words between two rows' lists in the mma CTA: N rounded up to 4,
+    then to an odd multiple of 4 (16-byte reads of 8 rows hit 8 banks)."""
+    return 4 * ((-(-nsel // 4)) | 1)
+
+
+def select_smem_bytes(kw: int, rows: int, nsel: int) -> int:
+    """Dynamic shared memory of one mma CTA (csrc/selection.cu: layout):
+    the exp table (W*32 + 1 entries, to 16 bytes), two stages of BLOCK_K
+    codes (KW + 4 words a column) and scores, the tile's column
+    popcounts, and per row a list of `row_stride(N)` values and ids, an
+    8-column exchange tile and a threshold."""
+    lut = (kw * 32 + 1 + 3) // 4 * 4
+    stage = BLOCK_K * (kw + 4) + BLOCK_K
+    return 4 * (lut + 2 * stage + BLOCK_K + 2 * rows * row_stride(nsel)
+                + 9 * rows)
+
+
+def select_plan(m: int, w: int, n: int) -> dict:
+    """The exact kernels' launch for (M, W, N), N = min(n, M - 1).
+    `instance`: "knockout" past TILED_MAX_NEIGHBORS or TILED_MAX_WORDS
+    (the one-shot entry point only: one block of KNOCKOUT_THREADS per
+    row), else "mma": `kw` words, `warps` per CTA (MAX_WARPS, or one per
+    32 rows of M, halved while the row CTAs times the most splits would
+    not reach half of FILL_SMS or the CTA's shared memory would pass
+    MAX_SHARED_BYTES), `rows` per CTA (ROWS_PER_WARP * warps), and the
+    columns cut into `splits` ranges of `split_len` (a multiple of 8; as
+    many CTAs of a cluster per row tile as bring the grid to two CTAs an
+    SM, up to MAX_SPLITS and at least SPLIT_MIN_COLS columns each),
+    walked in tiles of `block_k`. `smem_bytes` is one CTA's dynamic
+    shared memory, `ctas` the grid."""
+    nsel = max(min(n, m - 1), 0)
+    if nsel > TILED_MAX_NEIGHBORS or w > TILED_MAX_WORDS:
+        return {"instance": "knockout", "kw": 0, "warps": 8, "rows": 1,
+                "threads": KNOCKOUT_THREADS, "splits": 1, "split_len": m,
+                "block_k": m, "smem_bytes": knockout_smem_bytes(m),
+                "ctas": m}
+    kw = mma_words(w)
+    most_splits = max(1, min(MAX_SPLITS, -(-m // SPLIT_MIN_COLS)))
+    warps = min(MAX_WARPS, -(-m // ROWS_PER_WARP))
+    while warps > 1 and (
+            -(-m // (ROWS_PER_WARP * warps)) * most_splits < FILL_SMS // 2
+            or select_smem_bytes(kw, ROWS_PER_WARP * warps, nsel)
+            > MAX_SHARED_BYTES):
+        warps //= 2
+    rows = ROWS_PER_WARP * warps
+    row_ctas = -(-m // rows)
+    splits = min(most_splits, -(-2 * FILL_SMS // row_ctas))
+    split_len = -(-(-(-m // splits)) // 8) * 8
+    return {"instance": "mma", "kw": kw, "warps": warps, "rows": rows,
+            "threads": 32 * warps, "splits": splits, "split_len": split_len,
+            "block_k": BLOCK_K, "smem_bytes": select_smem_bytes(kw, rows,
+                                                                nsel),
+            "ctas": row_ctas * splits}
 
 
 def _launch(kernel: CudaKernel, codes: torch.Tensor, scores: torch.Tensor,
             lut: torch.Tensor, nsel: int, use_lsh: bool, use_rank: bool,
-            cand_ids: torch.Tensor = None):
+            cand_ids: torch.Tensor = None, plan: dict = None):
     """Launch a selection kernel on CUDA tensors after the checks all
-    three kernels share (`cand_ids` only for the ANN kernel); (ids
-    (M, nsel) int32, top_w (M, nsel) f32)."""
+    three kernels share (`cand_ids` only for the ANN kernel, `plan` only
+    for the exact ones); (ids (M, nsel) int32, top_w (M, nsel) f32)."""
     m, w = codes.shape
     if codes.device.type != "cuda":
         raise ValueError(f"unsupported device {codes.device}")
@@ -75,8 +170,10 @@ def _launch(kernel: CudaKernel, codes: torch.Tensor, scores: torch.Tensor,
     if cand_ids is not None:
         cand_ids = cand_ids.contiguous()
         args = args[:3] + (cand_ids.data_ptr(), m, w, cand_ids.shape[1])
-    kernel.launch(codes.device, *args, nsel, int(use_lsh), int(use_rank),
-                  ids.data_ptr(), top_w.data_ptr())
+    args += (nsel, int(use_lsh), int(use_rank))
+    if plan is not None:
+        args += (plan["kw"], plan["rows"], plan["splits"], plan["split_len"])
+    kernel.launch(codes.device, *args, ids.data_ptr(), top_w.data_ptr())
     return ids, top_w
 
 
@@ -96,16 +193,7 @@ def fused_select(codes: torch.Tensor, scores: torch.Tensor, *, bits: int,
                          "memory; select with tiling=\"tiled\" or \"auto\" "
                          "(the column-tiled kernel)")
     return _launch(KERNEL, codes, scores, lut, min(num_neighbors, m - 1),
-                   use_lsh, use_rank)
-
-
-TILED_KERNEL = CudaKernel(
-    "selection_tiled", "selection_tiled.cu", "fused_select_tiled",
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-     ctypes.c_void_p, ctypes.c_void_p])
-TILED_MAX_NEIGHBORS = 128   # running top-N slots per row in shared memory
-TILED_MAX_WORDS = 32        # code words (1024 bits) per row
+                   use_lsh, use_rank, plan=select_plan(m, w, num_neighbors))
 
 
 def fused_select_tiled(codes: torch.Tensor, scores: torch.Tensor, *,
@@ -126,7 +214,8 @@ def fused_select_tiled(codes: torch.Tensor, scores: torch.Tensor, *,
         raise ValueError(f"N={nsel}, W={w}: the tiled selection kernel takes "
                          f"N <= {TILED_MAX_NEIGHBORS} and codes of at most "
                          f"{TILED_MAX_WORDS * 32} bits")
-    return _launch(TILED_KERNEL, codes, scores, lut, nsel, use_lsh, use_rank)
+    return _launch(TILED_KERNEL, codes, scores, lut, nsel, use_lsh, use_rank,
+                   plan=select_plan(m, w, num_neighbors))
 
 
 ANN_KERNEL = CudaKernel(

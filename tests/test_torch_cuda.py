@@ -151,6 +151,105 @@ def test_tiled_selection_kernel_matches_plain(cuda, m, words, n):
             assert torch.equal(ki, oi) and torch.equal(kw, ow), flags
 
 
+# exact selection (select_plan): one 32-row CTA (M <= 32), single-warp
+# CTAs split over clusters of 2-8 (M = 129..4,097), W padded to KW
+# (1, 3, 4 -> 8; 32 in four 256-bit steps), N up to 128, ragged tiles
+EXACT_CASES = [(2, 1, 1), (10, 8, 9), (17, 3, 16), (40, 4, 9), (40, 32, 16),
+               (130, 32, 128), (700, 4, 16), (700, 8, 128), (1024, 8, 16),
+               (1024, 1, 9), (4097, 8, 16), (4097, 3, 1)]
+
+
+def _exact_inputs(m, w, seed):
+    g = _gen(seed)
+    codes = torch.randint(-2 ** 31, 2 ** 31 - 1, (m, w), generator=g,
+                          device="cuda", dtype=torch.int64).to(torch.int32)
+    if m > 9:
+        codes[5:9] = codes[4]
+    return codes, (torch.zeros(m, device="cuda"),
+                   torch.rand(m, generator=g, device="cuda").round(decimals=1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,w,n", EXACT_CASES)
+def test_exact_selection_kernels_match_plain_twin_and_repeat(cuda, m, w, n):
+    """Both entry points equal the plain version, each other and (up to
+    M = 1,024) the order twin at the plan, ids and weights bit for bit,
+    with ties, each Table-3 switch, and a second launch bit-identical."""
+    codes, score_sets = _exact_inputs(m, w, 31 * m + w)
+    bits = w * 32
+    lut = ref.selection_lut(w, bits, 1.0, device=cuda)
+    plan = selection.select_plan(m, w, n)
+    assert plan["instance"] == "mma"
+    for scores in score_sets:
+        for flags in ({}, {"use_lsh": False}, {"use_rank": False}):
+            kw = dict(bits=bits, gamma=1.0, num_neighbors=n, **flags)
+            oi, ow = selection.fused_select(codes, scores, **kw)
+            ti, tw = selection.fused_select_tiled(codes, scores, **kw)
+            pi, pw = ref.fused_select_ref(codes, scores, lut, num_neighbors=n,
+                                          **flags)
+            assert torch.equal(oi, pi) and torch.equal(ow, pw), flags
+            assert torch.equal(ti, pi) and torch.equal(tw, pw), flags
+            if m <= 1024:
+                qi, qw = ref.fused_select_split_ref(
+                    codes, scores, lut, num_neighbors=n, rows=plan["rows"],
+                    splits=plan["splits"], split_len=plan["split_len"],
+                    block_k=plan["block_k"], **flags)
+                assert torch.equal(oi, qi) and torch.equal(ow, qw), flags
+            ri, rw = selection.fused_select(codes, scores, **kw)
+            si, sw = selection.fused_select_tiled(codes, scores, **kw)
+            assert torch.equal(ri, oi) and torch.equal(rw, ow), flags
+            assert torch.equal(si, ti) and torch.equal(sw, tw), flags
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,w,n", [(300, 8, 200), (50, 40, 9), (64, 33, 63),
+                                   (200, 8, 129)])
+def test_oneshot_knockout_instance_matches_plain(cuda, m, w, n):
+    """N > 128 or W > 32: the one-shot wrapper's knockout instance; the
+    tiled wrapper refuses them."""
+    codes, score_sets = _exact_inputs(m, w, m + w)
+    lut = ref.selection_lut(w, w * 32, 1.0, device=cuda)
+    assert selection.select_plan(m, w, n)["instance"] == "knockout"
+    for scores in score_sets:
+        ki, kw = selection.fused_select(codes, scores, bits=w * 32,
+                                        gamma=1.0, num_neighbors=n)
+        pi, pw = ref.fused_select_ref(codes, scores, lut, num_neighbors=n)
+        assert torch.equal(ki, pi) and torch.equal(kw, pw)
+    with pytest.raises(ValueError, match="tiled selection kernel takes"):
+        selection.fused_select_tiled(codes, scores, bits=w * 32, gamma=1.0,
+                                     num_neighbors=n)
+
+
+@pytest.mark.cuda
+def test_knockout_instance_launches_at_the_route_limit(cuda):
+    """M = 46,489, the largest M "auto" sends to the one-shot kernel: the
+    knockout block (N = 129) fits with its static shared memory, and its
+    first 128 slots equal the tiled kernel's N = 128."""
+    codes, score_sets = _exact_inputs(46_489, 8, 5)
+    for scores in score_sets:
+        ki, kw = selection.fused_select(codes, scores, bits=256, gamma=1.0,
+                                        num_neighbors=129)
+        ti, tw = selection.fused_select_tiled(codes, scores, bits=256,
+                                              gamma=1.0, num_neighbors=128)
+        assert torch.equal(ki[:, :128], ti) and torch.equal(kw[:, :128], tw)
+
+
+@pytest.mark.cuda
+def test_select_plan_smem_matches_the_kernel(cuda):
+    """The plan's shared bytes (select_smem_bytes) equal the kernel's
+    layout, at every instance width and list length."""
+    size = selection.KERNEL.helper("select_smem_bytes", [ctypes.c_int] * 3)
+    for kw in (8, 16, 32):
+        for rows in (32, 64, 128):
+            for nsel in (1, 9, 16, 128):
+                assert size(kw, rows, nsel) == \
+                    selection.select_smem_bytes(kw, rows, nsel)
+    for m, w, n in EXACT_CASES + [(65_536, 8, 16), (46_489, 16, 128)]:
+        plan = selection.select_plan(m, w, n)
+        assert size(plan["kw"], plan["rows"], min(n, m - 1)) == \
+            plan["smem_bytes"]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,n,r,c", [(10, 9, 64, 10), (5, 3, 9, 17),
                                      (4, 8, 16, 4096), (3, 600, 5, 30)])
