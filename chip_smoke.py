@@ -34,9 +34,14 @@
    bit-identical, with the wrapper's launch plan (`oneshot_plan`,
    `streamed_plan`) printed and its kernels timed as the plan launches
    them; the
-   ANN selection runs on `ann_candidates` at the defaults (prefix 10,
-   probes 8): the main shape, all ties, clustered codes at M = 4096 and
-   65,536, and with prefix_bits=0 against the one-shot kernel; the
+   per-row ANN selection runs on `ann_candidates` at the defaults
+   (prefix 10, probes 8): the main shape, all ties, clustered codes at
+   M = 4096 and 65,536, and with prefix_bits=0 against the one-shot
+   kernel; the grouped ANN selection on `bucket_candidates` at the same
+   five shapes, against its plain version and the per-row kernel,
+   launched twice (bit-identical), with its plan (`selection.ann_plan`)
+   and bounded on its route (the +-1 Gram of each client against its
+   slot's valid candidates at 1,979 TOP/s; the S x K lists read once); the
    flash-attention kernel at the serving path's shape (N = 4 * 24 heads,
    Sq = Sk = 2048, dh = 128, f32, causal) and the same in bf16, at the
    JAX kernel's contract points, bidirectional with Sq != Sk, at lengths
@@ -61,7 +66,8 @@
    with `backend="ann"`. The one-shot run must launch the LSH, one-shot
    selection and one-shot exchange kernels and no other, the tiled run
    the LSH kernel and the tiled pair, the ANN run the LSH kernel, the
-   ANN selection (exactly twice) and the one-shot exchange. A run with
+   grouped ANN selection (exactly twice; the per-row ANN kernel never)
+   and the one-shot exchange. A run with
    `backend="oracle"` and the tiled run must give the one-shot run's
    round-0 neighbour ids and valid masks, the ANN run its round-0 id
    sets, in the order of `ann_select_ref` on the round-0 codes; each
@@ -70,8 +76,10 @@
    must equal its published row, and the unfused Eq. 6-8 composition
    through the Hamming kernel must give the fused kernel's ids. At
    M = 65,536, `select_partners` must take the tiled kernel with
-   `tiling="auto"` and the ANN kernel with `backend="auto"` (with K,
-   occupancy, times and recall against the tiled exact kernel). Three
+   `tiling="auto"` and the grouped ANN kernel with `backend="auto"`
+   (ids equal to the per-row kernel's; K, occupancy, the grouped and
+   the per-row route's candidate and kernel times, and recall against
+   the tiled exact kernel). Three
    profiled runs (one-shot, tiled, ANN) break round 1 down into its
    phases' host time, the device's busy time and the kernels that took
    it (`profile_round`).
@@ -87,14 +95,17 @@
    decode tokens/s, the peak device memory, the kernel's device time in
    a profiled prefill and a profile of three decode steps (host ms,
    device busy ms, idle share, launches, costliest kernels).
-5. Prints {"kernels": [...]} for every ported kernel, then, last,
+5. Prints {"kernels": [...]} for every kernel of the paths driven (the
+   per-row ANN kernel, which no path takes since the route took the
+   grouped one, is checked in 2 only), then, last,
    {"ok": true, "device": {...}}.
 
 Exits non-zero, before printing any result, without a CUDA device or
 without the rest of the repository. Tolerances: LSH sums within
 1e-5 * (|plain| + ||x_row||_2) and codes equal on every bit whose |sum|
 > 1e-3 (a client's own code against its published row likewise);
-selection ids and weights equal (one-shot, tiled and ANN); Hamming
+selection ids and weights equal (one-shot, tiled, per-row and grouped
+ANN); Hamming
 distances equal; unfused selection ids equal to the fused kernel's
 except where two Eq. 8 weights are within 1 ulp; one-shot exchange l_ij
 and target within rtol 1e-5 (atol 1e-5 for target entries near 0);
@@ -662,6 +673,91 @@ def check_selection_ann(torch, m, bits, n, gen, kind="random",
                 bound_by=by, launches=selection.ANN_KERNEL.launches - n0)
 
 
+def ann_grouped_bound(cand, codes, n):
+    """Codes, scores, table, the S x K lists, `order` and `starts` read
+    once, the (M, N) outputs written once; the +-1 Gram's 2*W*32 int8
+    operations per pair of a client and a candidate of its slot's list
+    (sentinels and the client itself excluded), counted on this run's
+    lists, at the tensor cores' dense rate (the kernel's route)."""
+    import torch
+    m, w = codes.shape
+    s, k = cand.lists.shape
+    nsel = min(n, m - 1)
+    per_slot = (cand.starts[1:] - cand.starts[:-1]).to(torch.int64)
+    valid = (cand.lists < m).sum(1).to(torch.int64)
+    rows = torch.arange(m, device=codes.device)
+    own = (cand.lists[cand.slot.long()] == rows[:, None]).sum()
+    pairs = int((per_slot * valid).sum() - own)
+    bytes_moved = (4.0 * (m * w + m + w * 32 + 1 + s * k + m + s + 1)
+                   + 8.0 * m * nsel)
+    return bound(bytes_moved, 2.0 * pairs * w * 32 / INT8_OP_PER_S) + (
+        pairs,)
+
+
+def check_selection_ann_grouped(torch, m, bits, n, gen, kind="random",
+                                prefix_bits=10, probes=8):
+    """The grouped ANN kernel on `bucket_candidates` against its plain
+    version (`ann_select_grouped_ref`) and the per-row kernel on
+    `ann_candidates` of the same codes, launched twice (bit-identical,
+    else it raises), with its plan; with prefix_bits=0 also against the
+    one-shot exact kernel. The inputs are `ann_inputs`' (the same draws
+    as the per-row check's)."""
+    from repro_torch.core import ann
+    from repro_torch.kernels import ref, selection
+    codes, scores, rows = ann_inputs(torch, m, bits, n, gen, kind,
+                                     prefix_bits, probes)
+    cand = ann.bucket_candidates(codes, scores, seed=0,
+                                 prefix_bits=prefix_bits, probes=probes,
+                                 num_neighbors=min(n, m - 1))
+    lut = ref.selection_lut(bits // 32, bits, 1.0, device=codes.device)
+    call = lambda: selection.fused_select_ann_grouped(  # noqa: E731
+        codes, scores, cand, bits=bits, gamma=1.0, num_neighbors=n)
+    plain = lambda: ref.ann_select_grouped_ref(    # noqa: E731
+        codes, scores, cand, lut, num_neighbors=n)
+    ki, kw = got = call()
+    pi, pw = plain()
+    ri, rw = selection.fused_select_ann(codes, scores, rows.ids, bits=bits,
+                                        gamma=1.0, num_neighbors=n)
+    again = call()
+    torch.cuda.synchronize()
+    if not torch.equal(cand.lists[cand.slot.long()], rows.ids):
+        raise AssertionError(f"bucket lists differ from ann_candidates at "
+                             f"m={m}, kind={kind}")
+    if not (torch.equal(ki, pi) and torch.equal(kw, pw)):
+        raise AssertionError(f"grouped ANN selection disagrees with its "
+                             f"plain version at m={m}, kind={kind}")
+    if not (torch.equal(ki, ri) and torch.equal(kw, rw)):
+        raise AssertionError(f"grouped ANN selection disagrees with the "
+                             f"per-row kernel at m={m}, kind={kind}")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"two grouped ANN launches differ at m={m}")
+    s, k = cand.lists.shape
+    out = {"k": k, "slots": s, "plan": selection.ann_plan(
+               m, bits // 32, n, k, s), "repeat_bit_equal": True,
+           "oneshot_ms": None, "per_row_ms": device_ms(
+               lambda: selection.fused_select_ann(
+                   codes, scores, rows.ids, bits=bits, gamma=1.0,
+                   num_neighbors=n), ("select_ann_kernel",))}
+    if prefix_bits == 0:
+        oi, ow = selection.fused_select(codes, scores, bits=bits, gamma=1.0,
+                                        num_neighbors=n)
+        torch.cuda.synchronize()
+        if not (torch.equal(ki, oi) and torch.equal(kw, ow)):
+            raise AssertionError(f"grouped ANN selection with prefix_bits=0 "
+                                 f"differs from the one-shot kernel at m={m}")
+        out["oneshot_ms"] = device_ms(lambda: selection.fused_select(
+            codes, scores, bits=bits, gamma=1.0, num_neighbors=n),
+            ("fused_select_kernel",))
+    del rows
+    n0 = selection.GROUPED_KERNEL.launches
+    t = timings(call, ("select_ann_grouped_kernel",), plain,
+                plain_iters=1 if m > 8192 else (3 if m >= 1024 else 20))
+    bms, by, pairs = ann_grouped_bound(cand, codes, n)
+    return dict(**t, **out, pairs=pairs, max_abs_err=max_finite_diff(kw, pw),
+                bound_ms=bms, bound_by=by,
+                launches=selection.GROUPED_KERNEL.launches - n0)
+
+
 def check_lsh_single(torch, p, bits, gen):
     """The single-client kernel against its plain version and the order
     twin, and its sums against the batched kernel's row on the same
@@ -1104,52 +1200,68 @@ def check_ann_round0_order(torch, hist):
 
 def check_auto_ann_at_scale(torch, gen, m=65_536, bits=256, n=16):
     """Path 2: `select_partners(backend="auto")` at M=65,536 on clustered
-    codes must launch the ANN kernel once and no exact selection kernel,
-    and give `ann_select_ref`'s ids on the same candidates. Reports K,
-    the occupancy, the candidate generation's and the kernel's time, the
-    whole ANN selection's, and recall@N against the tiled exact kernel on
-    the same inputs (device time; the profiler may drop records of the
-    15 ms tiled kernel, so its CUDA-event call time is printed too)."""
+    codes must launch the grouped ANN kernel once and neither the per-row
+    ANN kernel nor an exact one, and give `ann_select_ref`'s ids on
+    `ann_candidates` of the same codes, which are also the per-row
+    kernel's (so the recall is the per-row route's). Reports K, the
+    occupancy, the route's parts (`bucket_candidates` ms, the grouped
+    kernel's device ms) beside the per-row kernel's device ms on
+    `ann_candidates`, the whole ANN selection's ms, and recall@N against
+    the tiled exact kernel on the same inputs (device time; the profiler
+    may drop records of the 5 ms tiled kernel, so its CUDA-event call time
+    is printed too)."""
     from repro_torch.configs.paper_models import FedConfig
     from repro_torch.core import ann
     from repro_torch.core.neighbor import select_partners
     from repro_torch.kernels import ref, selection
     codes, scores = clustered_codes(torch, m, bits, gen)
     fed = FedConfig(num_clients=m, num_neighbors=n, lsh_bits=bits)
-    kernels = (selection.ANN_KERNEL, selection.KERNEL, selection.TILED_KERNEL)
+    kernels = (selection.GROUPED_KERNEL, selection.ANN_KERNEL,
+               selection.KERNEL, selection.TILED_KERNEL)
     before = [k.launches for k in kernels]
     ids, mask = select_partners(codes, scores, fed, backend="auto", seed=0)
     launched = [k.launches - b for k, b in zip(kernels, before)]
-    gen_cand = lambda: ann.ann_candidates(         # noqa: E731
-        codes, scores, seed=0, prefix_bits=fed.ann_prefix_bits,
-        probes=fed.ann_probes, num_neighbors=n)
-    cand = gen_cand()
+    knobs = dict(seed=0, prefix_bits=fed.ann_prefix_bits,
+                 probes=fed.ann_probes, num_neighbors=n)
+    grouped_cand = lambda: ann.bucket_candidates(  # noqa: E731
+        codes, scores, **knobs)
+    rows, cand = ann.ann_candidates(codes, scores, **knobs), grouped_cand()
     lut = ref.selection_lut(bits // 32, bits, fed.gamma, device="cuda")
-    want, _ = ref.ann_select_ref(codes, scores, cand.ids, lut,
+    want, _ = ref.ann_select_ref(codes, scores, rows.ids, lut,
                                  num_neighbors=n)
-    kernel = lambda: selection.fused_select_ann(   # noqa: E731
-        codes, scores, cand.ids, bits=bits, gamma=fed.gamma, num_neighbors=n)
+    per_row = lambda: selection.fused_select_ann(  # noqa: E731
+        codes, scores, rows.ids, bits=bits, gamma=fed.gamma, num_neighbors=n)
+    grouped = lambda: selection.fused_select_ann_grouped(  # noqa: E731
+        codes, scores, cand, bits=bits, gamma=fed.gamma, num_neighbors=n)
     tiled = lambda: selection.fused_select_tiled(  # noqa: E731
         codes, scores, bits=bits, gamma=fed.gamma, num_neighbors=n)
     exact, _ = tiled()
+    row_ids, _ = per_row()
     torch.cuda.synchronize()
     hits = (ids.long()[:, :, None] == exact.long()[:, None, :]).any(-1)
     out = {"phase": "auto_ann", "m": m, "bits": bits, "n": n,
-           "ann_launches": launched[0], "oneshot_launches": launched[1],
-           "tiled_launches": launched[2], **ann.occupancy_stats(cand),
+           "grouped_launches": launched[0], "per_row_launches": launched[1],
+           "oneshot_launches": launched[2], "tiled_launches": launched[3],
+           **ann.occupancy_stats(rows), "slots": cand.lists.shape[0],
+           "plan": selection.ann_plan(m, bits // 32, n, rows.ids.shape[1],
+                                      cand.lists.shape[0]),
+           "ids_equal_per_row_kernel": bool(torch.equal(ids, row_ids)),
            "recall_vs_tiled_exact": hits.float().mean().item(),
-           "candidates_ms": time_ms(gen_cand, iters=5),
-           "kernel_ms": device_ms(kernel, ("select_ann_kernel",)),
+           "bucket_candidates_ms": time_ms(grouped_cand, iters=5),
+           "grouped_kernel_ms": device_ms(grouped,
+                                          ("select_ann_grouped_kernel",)),
            "select_partners_ms": time_ms(lambda: select_partners(
                codes, scores, fed, backend="auto", seed=0), iters=5),
+           "per_row_kernel_ms": device_ms(per_row, ("select_ann_kernel",)),
            "tiled_exact_call_ms": time_ms(tiled, iters=5),
            "tiled_exact_ms": device_ms(tiled, ("select_tiled_kernel",),
                                        iters=5)}
     emit(out)
-    if launched != [1, 0, 0] or not torch.equal(ids, want) or \
-            not bool(mask.all()):
+    if launched != [1, 0, 0, 0] or not torch.equal(ids, want) or \
+            not torch.equal(ids, row_ids) or not bool(mask.all()):
         raise AssertionError(f"select_partners(backend='auto') at M={m} did "
-                             f"not take the ANN kernel: {launched}")
+                             f"not take the grouped ANN kernel or differs "
+                             f"from ann_select_ref: {launched}")
 
 
 def client_codes_and_distances(torch, state, kernels):
@@ -1230,6 +1342,7 @@ def main() -> int:
                "selection_tiled": selection.TILED_KERNEL,
                "exchange_streamed": exchange.STREAMED_KERNEL,
                "selection_ann": selection.ANN_KERNEL,
+               "selection_ann_grouped": selection.GROUPED_KERNEL,
                "lsh_single": lsh_projection.SINGLE_KERNEL,
                "hamming": hamming.KERNEL,
                "flash_attention": flash_attention.KERNEL}
@@ -1313,6 +1426,17 @@ def main() -> int:
          lambda: check_selection_ann(torch, 4096, 256, 16, gen,
                                      prefix_bits=0, probes=0)),
     ] + [
+        ("selection_ann_grouped", dict(m=m, bits=256, n=n, kind=kind,
+                                       prefix_bits=pb),
+         (m, kind) == (10, "random"),
+         lambda m=m, n=n, kind=kind, pb=pb: check_selection_ann_grouped(
+             torch, m, 256, n, gen, kind=kind, prefix_bits=pb,
+             probes=8 if pb else 0))
+        for m, n, kind, pb in ((10, 9, "random", 10), (10, 9, "ties", 10),
+                               (4096, 16, "clustered", 10),
+                               (65_536, 16, "clustered", 10),
+                               (4096, 16, "random", 0))
+    ] + [
         ("lsh_single", dict(p=p, bits=256), p == 421_888,
          lambda p=p: check_lsh_single(torch, p, 256, gen))
         for p in (421_888, 4096, 8192, 12_288)
@@ -1350,7 +1474,7 @@ def main() -> int:
     # ANN selection; then the per-client code and the unfused Eq. 6-8
     oneshot = ("lsh_projection", "selection", "exchange")
     tiled = ("lsh_projection", "selection_tiled", "exchange_streamed")
-    ann_path = ("lsh_projection", "selection_ann", "exchange")
+    ann_path = ("lsh_projection", "selection_ann_grouped", "exchange")
     hist, launches, state = run_main_path(run_federation, kernels,
                                           backend="kernel")
     expect_launches(launches, oneshot, set(kernels) - set(oneshot),
@@ -1364,15 +1488,18 @@ def main() -> int:
     hist_a, launches_a, _ = run_main_path(run_federation, kernels,
                                           backend="ann")
     expect_launches(launches_a, ann_path, set(kernels) - set(ann_path), "ann")
-    if launches_a["selection_ann"] != 2:
-        raise AssertionError("the ann run launched the ANN selection "
-                             f"{launches_a['selection_ann']} times, not 2")
+    if (launches_a["selection_ann_grouped"], launches_a["selection_ann"]) \
+            != (2, 0):
+        raise AssertionError(
+            "the ann run launched the grouped ANN selection "
+            f"{launches_a['selection_ann_grouped']} times, not 2, and the "
+            f"per-row one {launches_a['selection_ann']} times, not 0")
     expect_same_run(hist_a, hist, "ann", id_sets=True)
     check_ann_round0_order(torch, hist_a)
     launches_c = client_codes_and_distances(torch, state, kernels)
     for name in ("selection_tiled", "exchange_streamed"):
         launches[name] = launches_t[name]
-    launches["selection_ann"] = launches_a["selection_ann"]
+    launches["selection_ann_grouped"] = launches_a["selection_ann_grouped"]
     for name in ("lsh_single", "hamming"):
         launches[name] = launches_c[name]
     check_auto_tiling_at_scale(torch, gen)
@@ -1380,7 +1507,7 @@ def main() -> int:
 
     names = (*LSH_NAMES, "fused_select_kernel",
              "fused_exchange_kernel", "select_tiled_kernel",
-             *STREAMED_EXCHANGE_NAMES, "select_ann_kernel")
+             *STREAMED_EXCHANGE_NAMES, "select_ann_grouped_kernel")
     for backend, tiling in (("kernel", "oneshot"), ("kernel", "tiled"),
                             ("ann", "auto")):
         emit({"phase": "profile", **profile_round(
@@ -1403,8 +1530,8 @@ def main() -> int:
         "exchange_streamed": (
             "src/repro_torch/kernels/csrc/exchange_streamed.cu",
             "src/repro/kernels/exchange.py:309"),
-        "selection_ann": ("src/repro_torch/kernels/csrc/selection_ann.cu",
-                          "src/repro/kernels/selection.py:398"),
+        "selection_ann_grouped": ("src/repro_torch/kernels/csrc/selection.cu",
+                                  "src/repro/kernels/selection.py:398"),
         "lsh_single": ("src/repro_torch/kernels/csrc/lsh_projection.cu",
                        "src/repro/kernels/lsh_projection.py:92"),
         "hamming": ("src/repro_torch/kernels/csrc/hamming.cu",
@@ -1421,7 +1548,7 @@ def main() -> int:
          "bound_ms": main_shape[name]["bound_ms"],
          "bound_by": main_shape[name]["bound_by"],
          "library_ms": main_shape[name]["library_ms"]}
-        for name in kernels]})
+        for name in meta]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

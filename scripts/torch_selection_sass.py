@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Show what the exact selection kernels compile to on a CUDA machine.
+"""Show what the selection kernels of `csrc/selection.cu` (one-shot,
+column-tiled and grouped ANN) compile to on a CUDA machine.
 
     python3 scripts/torch_selection_sass.py
 
@@ -24,12 +25,15 @@ OPS = ("BMMA", "IMMA", "HMMA", "GMMA", "POPC")
 
 
 def short(name: str) -> str:
-    """fused_select_kernel<8, true> from a mangled kernel name."""
-    m = re.search(r"(fused_select_kernel|select_tiled_kernel)ILi(\d+)ELb(\d)E",
+    """fused_select_kernel<8, true> (select_ann_grouped_kernel<8, true,
+    16>) from a mangled kernel name."""
+    m = re.search(r"(fused_select_kernel|select_tiled_kernel|"
+                  r"select_ann_grouped_kernel)ILi(\d+)ELb(\d)E(?:Li(\d+)E)?",
                   name)
     if not m:
         return name
-    return f"{m.group(1)}<{m.group(2)}, {bool(int(m.group(3)))}>"
+    tail = f", {m.group(4)}" if m.group(4) else ""
+    return f"{m.group(1)}<{m.group(2)}, {bool(int(m.group(3)))}{tail}>"
 
 
 def main() -> int:

@@ -6,7 +6,8 @@ crowd-sourced ranking scores -> per-client top-N partner ids, through the
 fused selection kernels ("kernel") or their plain versions ("oracle"),
 one-shot or column-tiled as `backends.resolve_tiling` decides from the
 one-shot kernel's shared memory (the tiled kernel is bit-equal to it),
-or through the LSH-bucket candidate index ("ann", `core/ann.py`), which
+or through the LSH-bucket candidate index ("ann", `core/ann.py`, one
+candidate list per bucket, the grouped ANN kernel), which
 `backends.resolve_selection` also picks for "auto" in large federations.
 The unfused pieces (`selection_weights`, `select_neighbors`) stay the
 semantic reference of the fused paths.
@@ -83,12 +84,11 @@ def select_partners(codes: torch.Tensor, scores: torch.Tensor, fed, *,
     if resolved == "ann":
         # the tiling string stays validated; the ANN kernel has one layout
         backends.resolve_tiling(tiling or fed.selection_tiling, 0)
-        cand = ann.ann_candidates(codes, scores, seed=seed,
-                                  prefix_bits=fed.ann_prefix_bits,
-                                  probes=fed.ann_probes, num_neighbors=n)
-        ids, top_w = selection.fused_select_ann(
-            codes, scores, cand.ids, bits=fed.lsh_bits, gamma=fed.gamma,
-            **kw)
+        cand = ann.bucket_candidates(codes, scores, seed=seed,
+                                     prefix_bits=fed.ann_prefix_bits,
+                                     probes=fed.ann_probes, num_neighbors=n)
+        ids, top_w = selection.fused_select_ann_grouped(
+            codes, scores, cand, bits=fed.lsh_bits, gamma=fed.gamma, **kw)
         return ids, torch.isfinite(top_w)
     tiled = backends.resolve_tiling(
         tiling or fed.selection_tiling,

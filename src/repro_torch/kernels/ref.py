@@ -283,6 +283,18 @@ def ann_select_ref(codes: torch.Tensor, scores: torch.Tensor,
     return ids, top_w
 
 
+def ann_select_grouped_ref(codes: torch.Tensor, scores: torch.Tensor, cand,
+                           lut: torch.Tensor, *, num_neighbors: int,
+                           use_lsh: bool = True, use_rank: bool = True,
+                           block_m: int = BLOCK_ROWS):
+    """`ann_select_ref` on per-bucket candidates (`core.ann.
+    bucket_candidates`): each client takes its slot's list, so the
+    result equals `ann_select_ref` on `ann_candidates` bit for bit."""
+    return ann_select_ref(codes, scores, cand.lists[cand.slot.long()], lut,
+                          num_neighbors=num_neighbors, use_lsh=use_lsh,
+                          use_rank=use_rank, block_m=block_m)
+
+
 def upper_half_mask(kl_mean: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
     """§3.5 keep filter: the upper half of the selected slots by output
     similarity, in counting-rank form rank(n) = #{k: kl_k < kl_n} +

@@ -1,6 +1,6 @@
 """Fused peer selection (WPFed Eq. 6-8 + top-N): wrappers of the one-shot,
-the column-tiled and the ANN CUDA kernels, and the exact kernels' launch
-plan.
+the column-tiled and the two ANN CUDA kernels, and the launch plans of
+the tensor-core ones.
 
 `fused_select` and `fused_select_tiled` replace the TPU kernels
 `repro/kernels/selection.py:fused_select` (`_select_kernel`) and
@@ -26,17 +26,29 @@ row, XOR + popcount, N first-max passes). The bound is the 2*M*M*W*32
 int8 operations of the TPU kernel's Gram and the per-pair epilogue; at
 the main path's M=10 it is launch latency.
 
-`fused_select_ann` replaces the TPU kernel
-`repro/kernels/selection.py:fused_select_ann` (`_select_ann_kernel`)
-with `csrc/selection_ann.cu`: Eq. 6-8 only on each row's K candidate
-ids from `core/ann.py`, one warp per row, candidate codes gathered by id
-inside the kernel (the TPU wrapper's (M, K, W) gather is not carried
-over), ties by candidate position. Its bound is 3*M*K*W integer
-operations or the M*K*4 bytes of candidate ids.
+The TPU kernel `repro/kernels/selection.py:fused_select_ann`
+(`_select_ann_kernel`), Eq. 6-8 on each row's K candidate ids from
+`core/ann.py` with ties by candidate position, has two counterparts.
+`fused_select_ann_grouped`, the route's (`core/neighbor.py`), takes the
+per-bucket form (`ann.bucket_candidates`): a client's candidates depend
+only on its bucket, so up to `rows` clients of one slot form a tile of
+the exact kernels' design in `csrc/selection.cu` (binary tensor cores,
+lane-owned lists, cluster splits), whose columns are the slot's list
+positions, codes and scores gathered by id through cp.async; 8-column
+steps of sentinels alone are skipped. `ann_plan` (rows, tiles, splits)
+is a function of (M, W, N, K, S) alone, so nothing is read back from
+the device between the codes and the launch. Its bound is the
+2*M*K*W*32 operations of the +-1 Gram on the rows' own lists, or the
+S*K*4 bytes of the lists with the codes and the outputs.
+`fused_select_ann` keeps the per-row contract for arbitrary (M, K)
+candidate ids with `csrc/selection_ann.cu`: one warp per row, codes
+gathered by id (the TPU wrapper's (M, K, W) gather is not carried over),
+bound 3*M*K*W integer operations or the M*K*4 bytes of candidate ids.
 
 Each wrapper takes its plain version (`ref.fused_select_ref`,
-`ref.fused_select_tiled_ref`, `ref.ann_select_ref`) for CPU tensors
-only; for a CUDA tensor it launches its kernel or raises.
+`ref.fused_select_tiled_ref`, `ref.ann_select_ref`,
+`ref.ann_select_grouped_ref`) for CPU tensors only; for a CUDA tensor it
+launches its kernel or raises.
 """
 from __future__ import annotations
 
@@ -90,22 +102,25 @@ def mma_words(w: int) -> int:
     return 8 if w <= 8 else (16 if w <= 16 else 32)
 
 
-def row_stride(nsel: int) -> int:
-    """Words between two rows' lists in the mma CTA: N rounded up to 4,
-    then to an odd multiple of 4 (16-byte reads of 8 rows hit 8 banks)."""
-    return 4 * ((-(-nsel // 4)) | 1)
+def row_stride(nsel: int, grouped: bool = False) -> int:
+    """Words between two rows' lists in the mma CTA. Exact instances: N
+    rounded up to 4, then to an odd multiple of 4 (16-byte reads of 8
+    rows hit 8 banks). Grouped: N made odd (the 32 lanes of a warp, each
+    on its own row's list, hit 32 banks)."""
+    return nsel | 1 if grouped else 4 * ((-(-nsel // 4)) | 1)
 
 
-def select_smem_bytes(kw: int, rows: int, nsel: int) -> int:
+def select_smem_bytes(kw: int, rows: int, nsel: int,
+                      grouped: bool = False) -> int:
     """Dynamic shared memory of one mma CTA (csrc/selection.cu: layout):
     the exp table (W*32 + 1 entries, to 16 bytes), two stages of BLOCK_K
     codes (KW + 4 words a column) and scores, the tile's column
-    popcounts, and per row a list of `row_stride(N)` values and ids, an
-    8-column exchange tile and a threshold."""
+    popcounts, and per row a list of `row_stride(N, grouped)` values and
+    ids, an 8-column exchange tile and a threshold."""
     lut = (kw * 32 + 1 + 3) // 4 * 4
     stage = BLOCK_K * (kw + 4) + BLOCK_K
-    return 4 * (lut + 2 * stage + BLOCK_K + 2 * rows * row_stride(nsel)
-                + 9 * rows)
+    return 4 * (lut + 2 * stage + BLOCK_K
+                + 2 * rows * row_stride(nsel, grouped) + 9 * rows)
 
 
 def select_plan(m: int, w: int, n: int) -> dict:
@@ -148,10 +163,12 @@ def select_plan(m: int, w: int, n: int) -> dict:
 
 def _launch(kernel: CudaKernel, codes: torch.Tensor, scores: torch.Tensor,
             lut: torch.Tensor, nsel: int, use_lsh: bool, use_rank: bool,
-            cand_ids: torch.Tensor = None, plan: dict = None):
+            tensors=(), sizes=None, plan_args=()):
     """Launch a selection kernel on CUDA tensors after the checks all
-    three kernels share (`cand_ids` only for the ANN kernel, `plan` only
-    for the exact ones); (ids (M, nsel) int32, top_w (M, nsel) f32)."""
+    four kernels share; its C arguments are codes, scores, lut, then the
+    int32 `tensors` (candidates), `sizes` (default M, W), N, the two
+    switches, `plan_args` and the outputs. (ids (M, nsel) int32, top_w
+    (M, nsel) f32)."""
     m, w = codes.shape
     if codes.device.type != "cuda":
         raise ValueError(f"unsupported device {codes.device}")
@@ -164,17 +181,18 @@ def _launch(kernel: CudaKernel, codes: torch.Tensor, scores: torch.Tensor,
         return (torch.zeros((m, 0), dtype=torch.int32, device=codes.device),
                 torch.zeros((m, 0), dtype=torch.float32, device=codes.device))
     codes, scores = codes.contiguous(), scores.contiguous()
+    tensors = [t.contiguous() for t in tensors]
     ids = torch.empty((m, nsel), dtype=torch.int32, device=codes.device)
     top_w = torch.empty((m, nsel), dtype=torch.float32, device=codes.device)
-    args = (codes.data_ptr(), scores.data_ptr(), lut.data_ptr(), m, w)
-    if cand_ids is not None:
-        cand_ids = cand_ids.contiguous()
-        args = args[:3] + (cand_ids.data_ptr(), m, w, cand_ids.shape[1])
-    args += (nsel, int(use_lsh), int(use_rank))
-    if plan is not None:
-        args += (plan["kw"], plan["rows"], plan["splits"], plan["split_len"])
-    kernel.launch(codes.device, *args, ids.data_ptr(), top_w.data_ptr())
+    kernel.launch(codes.device, codes.data_ptr(), scores.data_ptr(),
+                  lut.data_ptr(), *(t.data_ptr() for t in tensors),
+                  *(sizes or (m, w)), nsel, int(use_lsh), int(use_rank),
+                  *plan_args, ids.data_ptr(), top_w.data_ptr())
     return ids, top_w
+
+
+def _plan_args(plan: dict) -> tuple:
+    return plan["kw"], plan["rows"], plan["splits"], plan["split_len"]
 
 
 def fused_select(codes: torch.Tensor, scores: torch.Tensor, *, bits: int,
@@ -193,7 +211,8 @@ def fused_select(codes: torch.Tensor, scores: torch.Tensor, *, bits: int,
                          "memory; select with tiling=\"tiled\" or \"auto\" "
                          "(the column-tiled kernel)")
     return _launch(KERNEL, codes, scores, lut, min(num_neighbors, m - 1),
-                   use_lsh, use_rank, plan=select_plan(m, w, num_neighbors))
+                   use_lsh, use_rank,
+                   plan_args=_plan_args(select_plan(m, w, num_neighbors)))
 
 
 def fused_select_tiled(codes: torch.Tensor, scores: torch.Tensor, *,
@@ -215,7 +234,7 @@ def fused_select_tiled(codes: torch.Tensor, scores: torch.Tensor, *,
                          f"N <= {TILED_MAX_NEIGHBORS} and codes of at most "
                          f"{TILED_MAX_WORDS * 32} bits")
     return _launch(TILED_KERNEL, codes, scores, lut, nsel, use_lsh, use_rank,
-                   plan=select_plan(m, w, num_neighbors))
+                   plan_args=_plan_args(select_plan(m, w, num_neighbors)))
 
 
 ANN_KERNEL = CudaKernel(
@@ -252,4 +271,87 @@ def fused_select_ann(codes: torch.Tensor, scores: torch.Tensor,
                          f"takes N <= {TILED_MAX_NEIGHBORS}, N <= K and "
                          f"codes of at most {TILED_MAX_WORDS * 32} bits")
     return _launch(ANN_KERNEL, codes, scores, lut, nsel, use_lsh, use_rank,
-                   cand_ids)
+                   (cand_ids,), (m, w, k))
+
+
+GROUPED_KERNEL = CudaKernel(
+    "selection_ann_grouped", "selection.cu", "fused_select_ann_grouped",
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_void_p] * 2)
+
+
+def ann_smem_bytes(kw: int, rows: int, nsel: int) -> int:
+    """Dynamic shared memory of one grouped CTA (csrc/selection.cu:
+    layout): `select_smem_bytes` with the grouped list stride, and a
+    ring of three BLOCK_K-id tiles."""
+    return select_smem_bytes(kw, rows, nsel, grouped=True) + 4 * 3 * BLOCK_K
+
+
+def ann_plan(m: int, w: int, n: int, k: int, n_slots: int) -> dict:
+    """The grouped ANN kernel's launch for M clients, W words, N =
+    min(n, M - 1) partners, K candidate positions and S = `n_slots` list
+    rows (`bucket_candidates`), from these shapes alone: `rows` per tile
+    (ROWS_PER_WARP * `warps`: MAX_WARPS, halved while the CTA's shared
+    memory would pass MAX_SHARED_BYTES; warps past a small bucket's
+    clients skip the products and still stage columns, which measured
+    faster on the H100 at M = 10 and 4,096 than CTAs sized to the mean
+    bucket); `tiles` = ceil(M / rows) + S, a bound on sum over slots of
+    ceil(clients / rows) for any bucket layout (tiles past a slot's
+    clients exit); the K positions cut into `splits` ranges of
+    `split_len` (a multiple of 8; as many CTAs of a cluster per tile as
+    bring the tiles the buckets are expected to fill, max(ceil(M / rows),
+    min(S, M)), to two CTAs an SM, up to MAX_SPLITS and at least
+    SPLIT_MIN_COLS positions each). `ctas` is the grid, `smem_bytes` one
+    CTA's dynamic shared memory."""
+    nsel = max(min(n, m - 1), 0)
+    kw = mma_words(w)
+    warps = MAX_WARPS
+    while warps > 1 and ann_smem_bytes(kw, ROWS_PER_WARP * warps,
+                                       nsel) > MAX_SHARED_BYTES:
+        warps //= 2
+    rows = ROWS_PER_WARP * warps
+    tiles = -(-m // rows) + n_slots
+    filled = max(-(-m // rows), min(n_slots, m))
+    most_splits = max(1, min(MAX_SPLITS, -(-k // SPLIT_MIN_COLS)))
+    splits = min(most_splits, -(-2 * FILL_SMS // filled))
+    split_len = -(-(-(-k // splits)) // 8) * 8
+    return {"kw": kw, "warps": warps, "rows": rows, "threads": 32 * warps,
+            "tiles": tiles, "splits": splits, "split_len": split_len,
+            "block_k": BLOCK_K, "smem_bytes": ann_smem_bytes(kw, rows, nsel),
+            "ctas": tiles * splits}
+
+
+def fused_select_ann_grouped(codes: torch.Tensor, scores: torch.Tensor, cand,
+                             *, bits: int, gamma: float, num_neighbors: int,
+                             use_lsh: bool = True, use_rank: bool = True):
+    """`fused_select_ann`'s contract on per-bucket candidates
+    (`core.ann.bucket_candidates`): codes (M, W) int32, scores (M,) f32
+    -> (ids (M, N) int32, top_w (M, N) f32), N = min(num_neighbors, M-1)
+    <= TILED_MAX_NEIGHBORS and <= K. Each tile of `ann_plan` runs one
+    slot's rows against its list on the binary tensor cores. Bit-equal
+    to `ref.ann_select_grouped_ref`, and so to `fused_select_ann` on
+    `ann_candidates` of the same codes."""
+    m, w = codes.shape
+    lut = ref.selection_lut(w, bits, gamma, device=codes.device)
+    if codes.device.type == "cpu":
+        return ref.ann_select_grouped_ref(codes, scores, cand, lut,
+                                          num_neighbors=num_neighbors,
+                                          use_lsh=use_lsh, use_rank=use_rank)
+    nsel = min(num_neighbors, m - 1)
+    s, k = cand.lists.shape if cand.lists.ndim == 2 else (0, 0)
+    for name, t, shape in (("lists", cand.lists, (s, k)),
+                           ("order", cand.order, (m,)),
+                           ("starts", cand.starts, (s + 1,))):
+        if t.dtype != torch.int32 or t.shape != shape or \
+                t.device != codes.device:
+            raise ValueError(f"cand.{name} must be {shape} int32 on the "
+                             f"codes' device, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if nsel > TILED_MAX_NEIGHBORS or w > TILED_MAX_WORDS or nsel > k or \
+            s < 1:
+        raise ValueError(f"N={nsel}, W={w}, K={k}, S={s}: the grouped ANN "
+                         f"kernel takes N <= {TILED_MAX_NEIGHBORS}, N <= K "
+                         f"and codes of at most {TILED_MAX_WORDS * 32} bits")
+    plan = ann_plan(m, w, num_neighbors, k, s)
+    return _launch(GROUPED_KERNEL, codes, scores, lut, nsel, use_lsh,
+                   use_rank, (cand.lists, cand.order, cand.starts),
+                   (m, w, k, s), _plan_args(plan) + (plan["tiles"],))

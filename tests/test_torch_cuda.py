@@ -341,6 +341,185 @@ def test_ann_prefix_zero_equals_the_exact_kernel(cuda):
     assert torch.equal(ai, oi) and torch.equal(aw, ow)
 
 
+def _grouped_inputs(kind, m, w, seed):
+    """Codes and score sets on the card: random codes with duplicates,
+    half the clients on one code (a bucket far past a tile and its cap),
+    clustered codes (centres of 32 clients, 2 % of bits flipped), or
+    random codes whose prefix bits at prefix 10 and permutation seed m
+    put every client in a bucket of its own; all tie (round 0) and
+    gridded scores."""
+    g = _gen(seed)
+    if kind == "distinct":
+        from repro_torch.core import ann
+        codes = _random_codes(g, m, w, "cuda")
+        own = torch.randperm(1 << 10, generator=g, device="cuda")[:m]
+        for t, b in enumerate(ann.prefix_bit_indices(w * 32, 10, m).tolist()):
+            col = codes[:, b // 32].long() & 0xFFFFFFFF
+            col = (col & ~(1 << (b % 32))) | (((own >> t) & 1) << (b % 32))
+            codes[:, b // 32] = torch.where(col >= 1 << 31, col - (1 << 32),
+                                            col).to(torch.int32)
+    elif kind == "clustered":
+        centers = torch.rand((max(m // 32, 1), w * 32), generator=g,
+                             device="cuda") < 0.5
+        assign = torch.randint(0, centers.shape[0], (m,), generator=g,
+                               device="cuda")
+        flips = torch.rand((m, w * 32), generator=g, device="cuda") < 0.02
+        codes = ops.pack_bits((centers[assign] ^ flips).float() * 2 - 1)
+    else:
+        codes = _random_codes(g, m, w, "cuda")
+        codes[5:9] = codes[4]
+        if kind == "skewed":
+            codes[: m // 2] = codes[0]
+    scores = (torch.zeros(m, device="cuda"),
+              torch.rand(m, generator=g, device="cuda").round(decimals=1))
+    return codes, scores
+
+
+GROUPED_CASES = [  # (kind, m, w, n, prefix_bits, probes)
+    ("random", 40, 8, 9, 3, 2),       # K = 78, not a multiple of 64
+    ("random", 300, 3, 20, 5, 3),     # W = 3: word-by-word staging
+    ("random", 130, 32, 128, 2, 2),   # the largest N and W
+    ("random", 300, 8, 16, 2, 2),     # 4 slots: a cluster of 8 splits
+    ("clustered", 2000, 2, 16, 4, 3),
+    ("clustered", 4096, 8, 16, 10, 8),
+    ("skewed", 1500, 8, 16, 4, 2),    # a bucket of 750+ past its cap
+    # S = M > 32 live slots: the tile-to-slot search's last 32-way round
+    # steps by more than one
+    ("distinct", 33, 8, 16, 10, 8),
+    ("distinct", 37, 4, 9, 10, 8),
+    ("distinct", 63, 8, 16, 10, 4),
+    ("distinct", 67, 2, 16, 10, 8),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,m,w,n,pb,probes", GROUPED_CASES)
+def test_grouped_ann_kernel_matches_plain_and_repeats(cuda, kind, m, w, n, pb,
+                                                      probes):
+    """The grouped kernel equals its plain version and the per-row kernel
+    on `ann_candidates`, ids and weights bit for bit, under each Table-3
+    switch, and a second launch gives the same bits."""
+    from repro_torch.core import ann
+    codes, score_sets = _grouped_inputs(kind, m, w, 7 * m + w)
+    bits = w * 32
+    lut = ref.selection_lut(w, bits, 1.0, device=cuda)
+    for scores in score_sets:
+        kw = dict(seed=m, prefix_bits=pb, probes=probes, num_neighbors=n)
+        cand = ann.bucket_candidates(codes, scores, **kw)
+        rows = ann.ann_candidates(codes, scores, **kw)
+        assert torch.equal(cand.lists[cand.slot.long()], rows.ids)
+        if kind == "skewed":
+            assert int(cand.dropped) > 0
+            assert int(cand.counts.max()) > 128
+        if kind == "distinct":
+            assert cand.lists.shape[0] == m
+            assert int((cand.counts > 0).sum()) == m
+        for flags in ({}, {"use_lsh": False}, {"use_rank": False}):
+            call = dict(bits=bits, gamma=1.0, num_neighbors=n, **flags)
+            gi, gw = selection.fused_select_ann_grouped(codes, scores, cand,
+                                                        **call)
+            pi, pw = ref.ann_select_grouped_ref(codes, scores, cand, lut,
+                                                num_neighbors=n, block_m=256,
+                                                **flags)
+            assert torch.equal(gi, pi) and torch.equal(gw, pw), flags
+            ri, rw = selection.fused_select_ann(codes, scores, rows.ids,
+                                                **call)
+            assert torch.equal(gi, ri) and torch.equal(gw, rw), flags
+            ai, aw = selection.fused_select_ann_grouped(codes, scores, cand,
+                                                        **call)
+            assert torch.equal(ai, gi) and torch.equal(aw, gw), flags
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [500, 3000])
+def test_grouped_prefix_zero_equals_the_exact_kernel(cuda, m):
+    """prefix_bits=0: one slot of every client, so the grouped kernel
+    gives `fused_select`'s ids and weights bit for bit (at M = 3,000
+    through a cluster of 8 splits, the sentinel teaser skipped)."""
+    from repro_torch.core import ann
+    codes, score_sets = _grouped_inputs("random", m, 8, m)
+    for scores in score_sets:
+        cand = ann.bucket_candidates(codes, scores, seed=0, prefix_bits=0,
+                                     probes=0, num_neighbors=16)
+        gi, gw = selection.fused_select_ann_grouped(
+            codes, scores, cand, bits=256, gamma=1.0, num_neighbors=16)
+        oi, ow = selection.fused_select(codes, scores, bits=256, gamma=1.0,
+                                        num_neighbors=16)
+        assert torch.equal(gi, oi) and torch.equal(gw, ow)
+    assert selection.ann_plan(m, 8, 16, cand.lists.shape[1],
+                              1)["splits"] == (8 if m == 3000 else 5)
+
+
+@pytest.mark.cuda
+def test_ann_plan_smem_matches_the_kernel(cuda):
+    """The plan's shared bytes (ann_smem_bytes) equal the grouped
+    kernel's layout."""
+    size = selection.GROUPED_KERNEL.helper("ann_smem_bytes",
+                                           [ctypes.c_int] * 3)
+    for kw in (8, 16, 32):
+        for rows in (32, 64, 128):
+            for nsel in (1, 9, 16, 128):
+                assert size(kw, rows, nsel) == \
+                    selection.ann_smem_bytes(kw, rows, nsel)
+
+
+@pytest.mark.cuda
+def test_grouped_route_has_no_host_sync(cuda):
+    """Candidate generation and the grouped launch, and the whole ANN
+    `select_partners`, run with CUDA sync debugging set to raise: nothing
+    between the codes and the launch waits for the device."""
+    from repro_torch.configs.paper_models import FedConfig
+    from repro_torch.core import ann, neighbor
+    codes, (_, scores) = _grouped_inputs("clustered", 4096, 8, 3)
+    fed = FedConfig(num_clients=4096, num_neighbors=16, lsh_bits=256)
+    want, _ = neighbor.select_partners(codes, scores, fed, backend="ann",
+                                       seed=1)     # builds, warms the table
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cand = ann.bucket_candidates(codes, scores, seed=1, prefix_bits=10,
+                                     probes=8, num_neighbors=16)
+        gi, _ = selection.fused_select_ann_grouped(
+            codes, scores, cand, bits=256, gamma=fed.gamma, num_neighbors=16)
+        ids, mask = neighbor.select_partners(codes, scores, fed,
+                                             backend="ann", seed=1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(gi, want) and torch.equal(ids, want)
+    assert bool(mask.all())
+
+
+@pytest.mark.cuda
+def test_grouped_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from repro_torch.core import ann
+    codes, (scores, _) = _grouped_inputs("random", 300, 8, 2)
+    cand = ann.bucket_candidates(codes, scores, seed=0, prefix_bits=3,
+                                 probes=1, num_neighbors=16)
+    call = dict(bits=256, gamma=1.0)
+    with pytest.raises(ValueError, match="N <= 128"):
+        selection.fused_select_ann_grouped(codes, scores, cand,
+                                           num_neighbors=150, **call)
+    short = cand._replace(lists=cand.lists[:, :8])
+    with pytest.raises(ValueError, match="N <= K"):
+        selection.fused_select_ann_grouped(codes, scores, short,
+                                           num_neighbors=9, **call)
+    with pytest.raises(ValueError, match="cand.order"):
+        selection.fused_select_ann_grouped(
+            codes, scores, cand._replace(order=cand.order.long()),
+            num_neighbors=9, **call)
+    with pytest.raises(ValueError, match="cand.starts"):
+        selection.fused_select_ann_grouped(
+            codes, scores, cand._replace(starts=cand.starts[:-1]),
+            num_neighbors=9, **call)
+    wide = _random_codes(_gen(3), 300, 33, cuda)
+    with pytest.raises(ValueError, match="at most 1024 bits"):
+        selection.fused_select_ann_grouped(wide, scores, cand, bits=33 * 32,
+                                           gamma=1.0, num_neighbors=4)
+    with pytest.raises(ValueError, match="int32"):
+        selection.fused_select_ann_grouped(codes.long(), scores, cand,
+                                           num_neighbors=4, **call)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,n,words", [(10, 10, 8), (70, 33, 33),
                                        (1000, 300, 8), (5, 1, 1)])
@@ -467,16 +646,19 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):
 
 @pytest.mark.cuda
 def test_ann_round_launches_the_ann_kernel(cuda):
-    """Two aecg rounds with backend="ann": one ANN selection per round,
-    no exact selection, the same ids on a second run."""
+    """Two aecg rounds with backend="ann": one grouped ANN selection per
+    round, no per-row ANN or exact selection, the same ids on a second
+    run."""
     from repro_torch.launch.fed import run_federation
     runs = []
     for _ in range(2):
         selection.ANN_KERNEL.launches = selection.KERNEL.launches = 0
+        selection.GROUPED_KERNEL.launches = 0
         _, hist = run_federation("aecg", rounds=2, num_clients=6,
                                  backend="ann", ann_prefix_bits=2,
                                  ann_probes=1, device=cuda, log=None)
-        assert selection.ANN_KERNEL.launches == 2
+        assert selection.GROUPED_KERNEL.launches == 2
+        assert selection.ANN_KERNEL.launches == 0
         assert selection.KERNEL.launches == 0
         runs.append([h["neighbor_ids"] for h in hist])
         for h in hist:

@@ -40,7 +40,7 @@ from repro_torch.models.convert import lm_params_from_jax
 from repro_torch.train import make_serve_step
 
 UNPORTED = ("recurrentgemma-2b", "xlstm-350m", "whisper-small",
-            "grok-1-314b", "llama-3.2-vision-90b")
+            "grok-1-314b", "kimi-k2-1t-a32b", "llama-3.2-vision-90b")
 
 
 def _t(a):
