@@ -83,7 +83,24 @@
    profiled runs (one-shot, tiled, ANN) break round 1 down into its
    phases' host time, the device's busy time and the kernels that took
    it (`profile_round`).
-4. Path 4, LM serving: `serve("minitron-4b", reduced=False, batch=4,
+4. The paper's threats and comparisons (Figs. 4-5, Table 2), counts set
+   to 0 just before each run and read just after: `run_federation(
+   "mnist", rounds=3, attack="lsh_cheat", attack_frac=0.5,
+   attack_start=0)` through the plain versions, the one-shot kernels, the
+   tiled kernels and `backend="ann"`. Each kernel run must launch its
+   path's kernels (the plain run none) and give the plain run's round-0
+   neighbour ids and valid masks (ANN: id sets) and accuracy within 0.02
+   per round; round 0 is attacked, so five clients carry the target's
+   forged code and the kernels' tie order is held on it. Prints per round
+   the attacker admission rate, the honest and attacker ranking scores,
+   the valid-neighbour share, the honest cohort's accuracy and seconds.
+   Then `attack="lie_in_reveal"` on the one-shot kernels must give
+   honest_reporter_frac 0.5 in every round. Then SILO, FedMD, ProxyFL and
+   KD-PDFL, built by `make_program` at the mnist defaults, two rounds
+   each on the card and on the CPU from the same seed: finite losses,
+   accuracy within 0.02 of the CPU run, the LSH kernel launched (by
+   `init_state`) and no other; seconds per round printed beside the CPU's.
+5. Path 4, LM serving: `serve("minitron-4b", reduced=False, batch=4,
    prompt_len=2048, max_new=32)` on the card (Minitron-4B at its
    published widths, 32 layers, random weights from seed 0), launch
    counts set to 0 just before: the flash-attention kernel must launch
@@ -95,7 +112,9 @@
    decode tokens/s, the peak device memory, the kernel's device time in
    a profiled prefill and a profile of three decode steps (host ms,
    device busy ms, idle share, launches, costliest kernels).
-5. Prints {"kernels": [...]} for every kernel of the paths driven (the
+6. Prints {"phase": "seconds", ...}, the wall seconds of each section
+   (build, kernel checks, main paths, profiles, attack, baselines,
+   serve), then {"kernels": [...]} for every kernel of the paths driven (the
    per-row ANN kernel, which no path takes since the route took the
    grouped one, is checked in 2 only), then, last,
    {"ok": true, "device": {...}}.
@@ -1112,7 +1131,8 @@ def expect_launches(launches, used, unused, label):
                              f"and {stray} kernels it must not")
 
 
-def expect_same_run(hist, base, label, id_sets=False):
+def expect_same_run(hist, base, label, id_sets=False,
+                    base_label="one-shot kernel"):
     """Round-0 selection and masks equal (with `id_sets`: each row's set
     of ids), accuracy within 0.02 per round, finite losses."""
     if id_sets:
@@ -1123,13 +1143,123 @@ def expect_same_run(hist, base, label, id_sets=False):
             hist[0]["valid_mask"] == base[0]["valid_mask"]
     if not same:
         raise AssertionError(f"round-0 selection of the {label} run differs "
-                             "from the one-shot kernel run")
+                             f"from the {base_label} run")
     for a, b in zip(hist, base):
         if not (abs(a["acc"] - b["acc"]) <= 0.02
                 and all(v == v and abs(v) < 1e30 for v in
                         (a["mean_loss"], b["mean_loss"]))):
-            raise AssertionError(f"round {a['round']}: {label} and one-shot "
-                                 "kernel runs disagree or are not finite")
+            raise AssertionError(f"round {a['round']}: {label} and "
+                                 f"{base_label} runs disagree or are not "
+                                 "finite")
+
+
+ATTACK_METRICS = ("attacker_admission_rate", "rank_score_honest",
+                  "rank_score_attacker", "valid_neighbor_frac",
+                  "honest_reporter_frac")
+
+
+def attack_run(run_federation, kernels, label, **kw):
+    """Three attacked mnist rounds on the card (half the clients attack
+    from round 0), every launch count set to 0 just before and read just
+    after; one line per round. Returns (history, launches)."""
+    for k in kernels.values():
+        k.launches = 0
+    _, hist = run_federation("mnist", rounds=3, device="cuda", log=None,
+                             attack_frac=0.5, attack_start=0, **kw)
+    launches = {name: k.launches for name, k in kernels.items()}
+    for h in hist:
+        emit({"phase": "attack", "run": label, "round": h["round"],
+              **{k: h[k] for k in ATTACK_METRICS}, "honest_acc": h["acc"],
+              "mean_loss": h["mean_loss"], "seconds": h["seconds"]})
+    return hist, launches
+
+
+def attack_path(run_federation, kernels, paths):
+    """§4.7 LSH cheating through `run_federation(attack="lsh_cheat")`:
+    the one-shot, tiled and ANN kernel runs must launch their paths'
+    kernels and give the plain run's round-0 selection (ANN: id sets) and
+    accuracy within 0.02. Round 0 is attacked, so five clients publish
+    the target's code: the kernels' tie order on forged codes is held
+    against the plain versions'. Then §3.6: under lie_in_reveal the
+    one-shot run must flag the liars, honest_reporter_frac 0.5 in every
+    round."""
+    base, launches = attack_run(run_federation, kernels, "oracle",
+                                attack="lsh_cheat", backend="oracle")
+    expect_launches(launches, (), set(kernels), "attack oracle")
+    for label, used, kw in paths:
+        hist, launches = attack_run(run_federation, kernels, label,
+                                    attack="lsh_cheat", **kw)
+        expect_launches(launches, used, set(kernels) - set(used),
+                        f"attack {label}")
+        expect_same_run(hist, base, f"attack {label}",
+                        id_sets=label == "ann", base_label="attack oracle")
+        for h in hist:
+            if not 0.0 <= h["attacker_admission_rate"] <= 1.0:
+                raise AssertionError(f"attack {label} round {h['round']}: "
+                                     "admission rate outside [0, 1]")
+    hist, _ = attack_run(run_federation, kernels, "lie_in_reveal one-shot",
+                         attack="lie_in_reveal", backend="kernel",
+                         tiling="oneshot")
+    if any(h["honest_reporter_frac"] != 0.5 for h in hist):
+        raise AssertionError("lie_in_reveal: the §3.6 check did not flag "
+                             "exactly half of the clients in every round")
+
+
+def baseline_run(method, ds, device):
+    """Two rounds of a baseline built by `make_program` at the mnist
+    defaults (`ds`: 10 clients, seed 0) on `device`; the kernel-backed
+    LSH of `init_state` on "auto". Returns the history."""
+    import dataclasses
+    import functools
+    import torch
+    from repro_torch.core import evaluate, init_state, make_program, run_rounds
+    from repro_torch.launch.fed import MODEL_FOR
+    from repro_torch.models.client import (apply_client_model,
+                                           client_template, init_client_model)
+    from repro_torch.optim import adam
+    fed = dataclasses.replace(mnist_fed("auto"), exchange_backend="auto")
+    mcfg = MODEL_FOR["mnist"]()
+    apply_fn = functools.partial(apply_client_model, client_template(mcfg))
+    opt = adam(fed.lr)
+    data = {k: torch.from_numpy(v).to(device)
+            for k, v in ds.stacked().items()}
+    kw = {"shared_ref_x": torch.from_numpy(ds.shared_ref_x).to(device)} \
+        if method == "fedmd" else {}
+    state = init_state(lambda g: init_client_model(mcfg, g, device), opt,
+                       fed, 0)
+    _, hist = run_rounds(
+        make_program(method, apply_fn, opt, fed, **kw), state, data,
+        rounds=2, eval_fn=lambda st, d: {
+            "acc": evaluate(apply_fn, st, d)["mean_acc"]})
+    return hist
+
+
+def baselines_path(kernels):
+    """The four baselines of Table 2, two rounds each on the card and on
+    the CPU from the same seed (the draws come from CPU generators, so
+    they are the same): finite losses, accuracy within 0.02 of the CPU
+    run's in every round. The card's runs launch the LSH kernel in
+    `init_state` and no selection or exchange kernel."""
+    from repro_torch.data import DATASETS
+    ds = DATASETS["mnist"](seed=0)
+    for method in ("silo", "fedmd", "proxyfl", "kdpdfl"):
+        for k in kernels.values():
+            k.launches = 0
+        card = baseline_run(method, ds, "cuda")
+        launches = {name: k.launches for name, k in kernels.items()}
+        cpu = baseline_run(method, ds, "cpu")
+        for a, b in zip(card, cpu):
+            emit({"phase": "baselines", "method": method, "round": a["round"],
+                  "seconds": a["seconds"], "cpu_seconds": b["seconds"],
+                  "mean_loss": a["mean_loss"], "cpu_mean_loss": b["mean_loss"],
+                  "acc": a["acc"], "cpu_acc": b["acc"]})
+            if not (math.isfinite(a["mean_loss"])
+                    and abs(a["acc"] - b["acc"]) <= 0.02):
+                raise AssertionError(f"{method} round {a['round']}: loss not "
+                                     "finite or accuracy off the CPU run's")
+        expect_launches(launches, ("lsh_projection",),
+                        set(kernels) - {"lsh_projection"},
+                        f"baseline {method}")
 
 
 def check_auto_tiling_at_scale(torch, gen, m=65_536, bits=256, n=16):
@@ -1346,9 +1476,16 @@ def main() -> int:
                "lsh_single": lsh_projection.SINGLE_KERNEL,
                "hamming": hamming.KERNEL,
                "flash_attention": flash_attention.KERNEL}
-    t0 = time.perf_counter()
+    laps, clock = {}, [time.perf_counter()]
+
+    def lap(name):
+        """Seconds since the previous lap, kept under `name`."""
+        now = time.perf_counter()
+        laps[name], clock[0] = now - clock[0], now
+        return laps[name]
+
     logs = build.build_all(kernels.values())
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+    emit({"phase": "build", "seconds": lap("build"),
           "ptxas": {name: ptxas_summary(log)
                     for name, log in logs.items()}})
 
@@ -1469,6 +1606,7 @@ def main() -> int:
         if is_main:
             main_shape[name] = res
         torch.cuda.empty_cache()
+    lap("kernel_checks")
 
     # 3. the main paths: one-shot kernels, plain versions, tiled kernels,
     # ANN selection; then the per-client code and the unfused Eq. 6-8
@@ -1504,6 +1642,7 @@ def main() -> int:
         launches[name] = launches_c[name]
     check_auto_tiling_at_scale(torch, gen)
     check_auto_ann_at_scale(torch, gen)
+    lap("main_paths")
 
     names = (*LSH_NAMES, "fused_select_kernel",
              "fused_exchange_kernel", "select_tiled_kernel",
@@ -1512,12 +1651,24 @@ def main() -> int:
                             ("ann", "auto")):
         emit({"phase": "profile", **profile_round(
             run_federation, names, tiling=tiling, backend=backend)})
+    lap("profiles")
 
-    # 4. LM serving: Minitron-4B at full width, prefill + greedy decode
+    # 4. the paper's threats and comparisons on the card
+    attack_path(run_federation, kernels, (
+        ("one-shot", oneshot, dict(backend="kernel", tiling="oneshot")),
+        ("tiled", tiled, dict(backend="kernel", tiling="tiled")),
+        ("ann", ann_path, dict(backend="ann"))))
+    lap("attack")
+    baselines_path(kernels)
+    lap("baselines")
+
+    # 5. LM serving: Minitron-4B at full width, prefill + greedy decode
     launches["flash_attention"] = serve_path(torch, kernels)[
         "flash_attention"]
+    lap("serve")
+    emit({"phase": "seconds", **laps})
 
-    # 5. every ported kernel
+    # 6. every ported kernel
     meta = {
         "lsh_projection": ("src/repro_torch/kernels/csrc/lsh_projection.cu",
                            "src/repro/kernels/lsh_projection.py:134"),

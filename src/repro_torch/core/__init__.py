@@ -1,6 +1,7 @@
 """The WPFed protocol in PyTorch: LSH similarity, crowd-sourced ranking,
 weighted neighbour selection, the all-in-one exchange, verification and
-the announcement ledger. Counterpart of `repro.core`."""
+the announcement ledger, with the baselines and threat models it is
+compared under. Counterpart of `repro.core`."""
 from repro_torch.core.exchange import (  # noqa: F401
     ExchangeResult,
     all_in_one_exchange,
@@ -8,6 +9,8 @@ from repro_torch.core.exchange import (  # noqa: F401
 from repro_torch.core.rounds import (  # noqa: F401
     RoundProgram,
     Schedule,
+    make_program,
+    program_round,
     resolve_schedule,
     run_rounds,
 )
@@ -19,7 +22,18 @@ from repro_torch.core.protocol import (  # noqa: F401
     evaluate,
     exchange_phase,
     init_state,
+    make_wpfed_round,
     select_phase,
     update_phase,
     wpfed_program,
+)
+from repro_torch.core.adversary import (  # noqa: F401
+    Attack,
+    ThreatModel,
+    apply_attacks,
+    attacker_mask_tail,
+    instrument_program,
+    resolve_attack,
+    resolve_threat,
+    threat_model,
 )

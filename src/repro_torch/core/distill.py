@@ -19,6 +19,17 @@ def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return (logits.argmax(-1) == labels).to(torch.float32).mean()
 
 
+def aggregate_neighbor_outputs(neighbor_logits: torch.Tensor,
+                               valid_mask: torch.Tensor):
+    """Mean over the valid neighbours: logits (N, R, C), mask (N,) ->
+    (agg (R, C), has_any). With no valid neighbour the mean is zeros and
+    has_any False (the local loss alone then drives the update)."""
+    w = valid_mask.to(torch.float32)
+    agg = torch.einsum("n,nrc->rc", w, neighbor_logits) / w.sum().clamp(
+        min=1.0)
+    return agg, w.sum() > 0
+
+
 def combined_loss(apply_fn, params, batch, ref_x, target_ref_logits,
                   has_target, alpha: float):
     """Alg. 1 line 19. batch: {"x", "y"} local minibatch. The target is

@@ -9,6 +9,10 @@ output-KL upper-half filter), through the fused exchange kernels
 `backends.resolve_tiling` decides from the one-shot kernel's shared
 memory (the streamed path agrees with the one-shot one within f32
 rounding; the mask flips only on exact KL ties).
+
+The unfused pieces (`distill.cross_entropy`,
+`verify.lsh_verification_mask`, `distill.aggregate_neighbor_outputs`)
+are the semantic reference the fused paths are held against.
 """
 from __future__ import annotations
 
@@ -18,6 +22,14 @@ import torch
 
 from repro_torch.core import backends
 from repro_torch.kernels import exchange, ref
+
+
+def public_ref_logits(neighbor_logits: torch.Tensor) -> torch.Tensor:
+    """The (M, N, R, C) neighbour-logit web as the exchanged artifact:
+    the identity. The JAX package marks the protocol's one sanctioned
+    release here for its taint analysis; the port keeps the name so the
+    exchange phase reads the same."""
+    return neighbor_logits
 
 
 class ExchangeResult(NamedTuple):

@@ -11,9 +11,12 @@ Counterpart of `repro/core/protocol.py`.
 
 `wpfed_program` composes them into a `core.rounds.RoundProgram`: the
 global round (all four phases) and the gossip epoch (exchange + update
-against the cached `SelectResult`); each phase runs in a profiler span
-named "wpfed.<phase>" (a no-op without an active profiler), which
-`chip_smoke.py` reads for the per-phase breakdown. The M clients'
+against the cached `SelectResult`); `make_wpfed_round` is the classic
+sync adapter over it. The per-client update (`local_update`,
+`batched_local_update`) is shared with `core.baselines`. Each phase
+runs in a profiler span named "wpfed.<phase>" (a no-op without an
+active profiler), which `chip_smoke.py` reads for the per-phase
+breakdown. The M clients'
 parameters are a dict of stacked (M, ...) tensors; forwards and updates
 loop over clients with `apply_fn(params_i, x)`. Randomness comes from
 `torch.Generator`s derived from the federation seed and the round index
@@ -30,14 +33,14 @@ from torch.profiler import record_function
 from repro_torch.configs.paper_models import FedConfig
 from repro_torch.core import distill, lsh, neighbor, ranking, verify
 from repro_torch.core.chain import fnv1a_commit
-from repro_torch.core.exchange import ExchangeResult, all_in_one_exchange
-from repro_torch.core.rounds import RoundProgram
-from repro_torch.kernels.ops import MASK32
+from repro_torch.core.exchange import (ExchangeResult, all_in_one_exchange,
+                                       public_ref_logits)
+from repro_torch.core.rounds import RoundProgram, program_round
 from repro_torch.optim.optimizers import Optimizer, apply_updates
 
 REF_MODES = ("personal", "public")
-# random streams of one round
-SELECT_STREAM, UPDATE_STREAM = 0, 1
+# random streams of one round (PICK_STREAM: ProxyFL's peer draw)
+SELECT_STREAM, UPDATE_STREAM, PICK_STREAM = 0, 1, 2
 
 
 class FedState(NamedTuple):
@@ -65,12 +68,32 @@ class Announcement(NamedTuple):
     commitments: torch.Tensor
 
 
+MASK64 = (1 << 64) - 1
+
+
+def _splitmix64(x: int) -> int:
+    z = (x + 0x9E3779B97F4A7C15) & MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & MASK64
+    return z ^ (z >> 31)
+
+
+def seeded_generator(*parts: int) -> torch.Generator:
+    """A CPU generator seeded from a tuple of integers. torch's CPU
+    generator keeps only the low 32 bits of its seed, so the parts are
+    mixed (splitmix64 steps) into one 32-bit seed, not packed side by
+    side."""
+    h = 0
+    for part in parts:
+        h = _splitmix64(h ^ (part & MASK64))
+    g = torch.Generator()
+    g.manual_seed(h >> 32)
+    return g
+
+
 def round_generator(seed: int, round_idx: int, stream: int) -> torch.Generator:
     """The CPU generator of one (seed, round, stream)."""
-    g = torch.Generator()
-    g.manual_seed(((seed & MASK32) << 32) | ((4 * round_idx + stream)
-                                             & MASK32))
-    return g
+    return seeded_generator(seed, round_idx, stream)
 
 
 def tree_map(fn, tree, *rest):
@@ -155,7 +178,7 @@ def exchange_phase(apply_fn: Callable, fed: FedConfig, params,
         x_shared = data["x_ref"][0]
         own_ref = torch.stack([apply_fn(client(params, i), x_shared)
                                for i in range(m)])
-        y_web = own_ref[sel.ids.to(torch.int64)]
+        y_web = public_ref_logits(own_ref[sel.ids.to(torch.int64)])
         y_ref = data["y_ref"][0][None].expand(m, -1)
     else:
         x_ref = data["x_ref"]
@@ -163,8 +186,9 @@ def exchange_phase(apply_fn: Callable, fed: FedConfig, params,
                                for i in range(m)])
         rows = [[apply_fn(client(params, j), x_ref[i]) for j in ids[i]]
                 for i in range(m)]
-        y_web = (torch.stack([torch.stack(r) for r in rows]) if ids[0]
-                 else own_ref.new_zeros((m, 0) + own_ref.shape[1:]))
+        y_web = public_ref_logits(
+            torch.stack([torch.stack(r) for r in rows]) if ids[0]
+            else own_ref.new_zeros((m, 0) + own_ref.shape[1:]))
         y_ref = data["y_ref"]
     return all_in_one_exchange(own_ref, y_web, y_ref, sel.sel_mask, fed)
 
@@ -175,45 +199,19 @@ def update_phase(apply_fn: Callable, optimizer: Optimizer, fed: FedConfig,
                  batch_idx: torch.Tensor = None):
     """Step 6b: `local_steps` minibatch Adam steps per client on the
     combined objective (Alg. 1 l.19), distilling toward the exchange's
-    target. `batch_idx` (M, local_steps, mb) int fixes the minibatch
-    indices (the parity tests pass the JAX package's); by default they
-    are drawn from `generator`. Returns (params, opt_state,
-    train_metrics) with the last step's losses per client."""
+    target (`batched_local_update`). `batch_idx` (M, local_steps, mb)
+    int fixes the minibatch indices (the parity tests pass the JAX
+    package's); by default they are drawn from `generator`. Returns
+    (params, opt_state, train_metrics) with the last step's losses per
+    client."""
     m = fed.num_clients
-    n_local = data["x_train"].shape[1]
-    mb = min(fed.local_batch, n_local)
-    if batch_idx is None:
-        batch_idx = torch.randint(0, n_local, (m, fed.local_steps, mb),
-                                  generator=generator)
-    batch_idx = batch_idx.to(device=data["x_train"].device,
-                             dtype=torch.int64)
+    data_per = {k: data[k] for k in ("x_train", "y_train", "x_ref")}
     if fed.ref_mode == "public":        # distil on the shared set
-        x_ref = data["x_ref"][0][None].expand(m, *data["x_ref"].shape[1:])
-    else:
-        x_ref = data["x_ref"]
-    new_params, new_opt, losses = [], [], []
-    for i in range(m):
-        p, s = client(params, i), client(opt_state, i)
-        for step in range(fed.local_steps):
-            idx = batch_idx[i, step]
-            batch = {"x": data["x_train"][i][idx],
-                     "y": data["y_train"][i][idx]}
-            leaves = {k: v.detach().requires_grad_(True)
-                      for k, v in p.items()}
-            loss, (l_loc, l_ref) = distill.combined_loss(
-                apply_fn, leaves, batch, x_ref[i], exch.target_ref[i],
-                exch.has_target[i], fed.alpha)
-            grads = dict(zip(leaves, torch.autograd.grad(
-                loss, list(leaves.values()))))
-            updates, s = optimizer.update(grads, s, p)
-            p = apply_updates(p, updates)
-        new_params.append(p)
-        new_opt.append(s)
-        losses.append(torch.stack([loss, l_loc, l_ref]).detach())
-    losses = torch.stack(losses)
-    metrics = {"loss": losses[:, 0], "local_loss": losses[:, 1],
-               "ref_loss": losses[:, 2]}
-    return stack(new_params), stack(new_opt), metrics
+        data_per["x_ref"] = data["x_ref"][0][None].expand(
+            m, *data["x_ref"].shape[1:])
+    return batched_local_update(apply_fn, optimizer, fed, params, opt_state,
+                                data_per, exch.target_ref, exch.has_target,
+                                generator=generator, batch_idx=batch_idx)
 
 
 def announce_phase(fed: FedConfig, params, sel: SelectResult,
@@ -226,6 +224,68 @@ def announce_phase(fed: FedConfig, params, sel: SelectResult,
                                   backend=fed.selection_backend)
     rankings = ranking.make_ranking(sel.ids, exch.l_ij, sel.sel_mask)
     return Announcement(codes, rankings, fnv1a_commit(rankings, salt=0))
+
+
+# ---------------------------------------------------------------------------
+# local updates (shared with core.baselines)
+# ---------------------------------------------------------------------------
+def local_update(apply_fn: Callable, optimizer: Optimizer, fed: FedConfig,
+                 params, opt_state, data_i: Dict[str, torch.Tensor],
+                 target_ref: torch.Tensor, has_target: torch.Tensor,
+                 batch_idx: torch.Tensor):
+    """`local_steps` minibatch steps on the combined loss for ONE client:
+    params / opt_state one client's trees, data_i its x_train, y_train
+    and x_ref, batch_idx (local_steps, mb) int64 on the data's device.
+    Returns (params, opt_state, (loss, local_loss, ref_loss) of the last
+    step)."""
+    p, s = params, opt_state
+    for step in range(fed.local_steps):
+        idx = batch_idx[step]
+        batch = {"x": data_i["x_train"][idx], "y": data_i["y_train"][idx]}
+        leaves = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+        loss, (l_loc, l_ref) = distill.combined_loss(
+            apply_fn, leaves, batch, data_i["x_ref"], target_ref, has_target,
+            fed.alpha)
+        grads = dict(zip(leaves, torch.autograd.grad(
+            loss, list(leaves.values()))))
+        updates, s = optimizer.update(grads, s, p)
+        p = apply_updates(p, updates)
+    return p, s, torch.stack([loss, l_loc, l_ref]).detach()
+
+
+def batched_local_update(apply_fn: Callable, optimizer: Optimizer,
+                         fed: FedConfig, params, opt_state,
+                         data_per: Dict[str, torch.Tensor],
+                         target_ref: torch.Tensor, has_target: torch.Tensor,
+                         *, generator: torch.Generator = None,
+                         batch_idx: torch.Tensor = None):
+    """`local_update` for each of the M clients of the stacked trees.
+    data_per holds (M, ...) x_train, y_train and x_ref; target_ref
+    (M, R, C), has_target (M,). `batch_idx` (M, local_steps, mb) fixes
+    the minibatches, else they are drawn in one call from `generator`.
+    Returns (params, opt_state, {"loss", "local_loss", "ref_loss"} (M,))."""
+    m = fed.num_clients
+    n_local = data_per["x_train"].shape[1]
+    mb = min(fed.local_batch, n_local)
+    if batch_idx is None:
+        batch_idx = torch.randint(0, n_local, (m, fed.local_steps, mb),
+                                  generator=generator)
+    batch_idx = batch_idx.to(device=data_per["x_train"].device,
+                             dtype=torch.int64)
+    new_params, new_opt, losses = [], [], []
+    for i in range(m):
+        p, s, loss = local_update(
+            apply_fn, optimizer, fed, client(params, i),
+            client(opt_state, i),
+            {k: v[i] for k, v in data_per.items()},
+            target_ref[i], has_target[i], batch_idx[i])
+        new_params.append(p)
+        new_opt.append(s)
+        losses.append(loss)
+    losses = torch.stack(losses)
+    metrics = {"loss": losses[:, 0], "local_loss": losses[:, 1],
+               "ref_loss": losses[:, 2]}
+    return stack(new_params), stack(new_opt), metrics
 
 
 # ---------------------------------------------------------------------------
@@ -256,8 +316,8 @@ def wpfed_program(apply_fn: Callable, optimizer: Optimizer,
     """WPFed as a round program: global_round is Algorithm 1 (all four
     phases; its cache is the round's `SelectResult`), gossip_round the
     exchange + update epoch against the cached selection, with codes,
-    rankings and commitments frozen. global_round accepts `batch_idx`
-    (see update_phase)."""
+    rankings and commitments frozen. Both accept `batch_idx` (see
+    update_phase)."""
 
     def global_round(state: FedState, data, batch_idx=None
                      ) -> Tuple[FedState, SelectResult, Dict]:
@@ -279,15 +339,16 @@ def wpfed_program(apply_fn: Callable, optimizer: Optimizer,
                              ann.commitments, state.seed, state.round + 1)
         return new_state, sel, metrics
 
-    def gossip_round(state: FedState, data, sel: SelectResult
-                     ) -> Tuple[FedState, SelectResult, Dict]:
+    def gossip_round(state: FedState, data, sel: SelectResult,
+                     batch_idx=None) -> Tuple[FedState, SelectResult, Dict]:
         with record_function("wpfed.exchange"):
             exch = exchange_phase(apply_fn, fed, state.params, data, sel)
         with record_function("wpfed.update"):
             params, opt_state, train_metrics = update_phase(
                 apply_fn, optimizer, fed, state.params, state.opt_state,
                 data, exch, round_generator(state.seed, state.round,
-                                            UPDATE_STREAM))
+                                            UPDATE_STREAM),
+                batch_idx=batch_idx)
         metrics = _round_metrics(sel, exch, train_metrics, state.round)
         return (state._replace(params=params, opt_state=opt_state,
                                round=state.round + 1), sel, metrics)
@@ -295,12 +356,25 @@ def wpfed_program(apply_fn: Callable, optimizer: Optimizer,
     return RoundProgram("wpfed", global_round, gossip_round)
 
 
+def make_wpfed_round(apply_fn: Callable, optimizer: Optimizer,
+                     fed: FedConfig):
+    """Classic sync API: round_fn(state, data) -> (state, metrics), the
+    adapter over `wpfed_program`'s global round."""
+    return program_round(wpfed_program(apply_fn, optimizer, fed))
+
+
 @torch.no_grad()
 def evaluate(apply_fn: Callable, state: FedState,
-             data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """Per-client test accuracy and its mean."""
+             data: Dict[str, torch.Tensor],
+             honest_mask: torch.Tensor = None) -> Dict[str, torch.Tensor]:
+    """Per-client test accuracy and its mean; with `honest_mask` (M,)
+    (bool or 0/1 floats) the mean runs over the honest clients only."""
     acc = torch.stack([
         distill.accuracy(apply_fn(client(state.params, i),
                                   data["x_test"][i]), data["y_test"][i])
         for i in range(state.codes.shape[0])])
-    return {"per_client_acc": acc, "mean_acc": acc.mean()}
+    if honest_mask is None:
+        return {"per_client_acc": acc, "mean_acc": acc.mean()}
+    w = honest_mask.to(device=acc.device, dtype=torch.float32)
+    return {"per_client_acc": acc,
+            "mean_acc": (acc * w).sum() / w.sum().clamp(min=1.0)}

@@ -1,5 +1,5 @@
-"""Round-program engine: one schedule API for the sync WPFed round and
-gossip epochs. Counterpart of `repro/core/rounds.py`.
+"""Round-program engine: one schedule API for the sync WPFed round,
+gossip epochs and the baselines. Counterpart of `repro/core/rounds.py`.
 
 A federation method is a `RoundProgram`: `global_round(state, data) ->
 (state, cache, metrics)` and `gossip_round(state, data, cache) -> same`.
@@ -7,7 +7,11 @@ A federation method is a `RoundProgram`: `global_round(state, data) ->
 epochs per reselection period; `run_rounds` drives the rounds eagerly
 (PyTorch has no whole-segment compile to amortise) and calls
 `on_reselect(start_round, state)` once per period, which is where the
-host `Blockchain` publishes.
+host `Blockchain` publishes. `make_program` builds every method by name.
+
+This module imports no `repro_torch.core` sibling at module level:
+`core.protocol` and `core.baselines` import `RoundProgram` from here, and
+`make_program` resolves them by function-level imports.
 """
 from __future__ import annotations
 
@@ -46,6 +50,7 @@ class Schedule:
 
 
 SCHEDULES = ("sync", "gossip")
+PROGRAMS = ("wpfed", "silo", "fedmd", "proxyfl", "kdpdfl")
 
 
 def resolve_schedule(name: str = "sync", reselect_every: int = 0) -> Schedule:
@@ -62,6 +67,31 @@ def resolve_schedule(name: str = "sync", reselect_every: int = 0) -> Schedule:
                 f"{reselect_every}")
         return Schedule(1)
     return Schedule(reselect_every or 4)
+
+
+def program_round(program: RoundProgram) -> Callable:
+    """Adapt a program's global round to the classic `round_fn(state,
+    data, **kw) -> (state, metrics)` (keywords such as `batch_idx` pass
+    through to the global round)."""
+
+    def round_fn(state, data, **kw):
+        state, _cache, metrics = program.global_round(state, data, **kw)
+        return state, metrics
+
+    return round_fn
+
+
+def make_program(method: str, apply_fn, optimizer, fed,
+                 **kwargs) -> RoundProgram:
+    """Build the round program of `method` (one of PROGRAMS). `fedmd`
+    requires shared_ref_x=...; `proxyfl` accepts num_peers=."""
+    from repro_torch.core import baselines, protocol
+    makers = {"wpfed": protocol.wpfed_program,
+              **baselines.BASELINE_PROGRAMS}
+    if method not in makers:
+        raise KeyError(
+            f"unknown method: {method!r} (expected one of {PROGRAMS})")
+    return makers[method](apply_fn, optimizer, fed, **kwargs)
 
 
 def host_metrics(metrics: Dict[str, Any]) -> Dict[str, Any]:

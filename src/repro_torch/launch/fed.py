@@ -8,11 +8,16 @@ Counterpart of `repro/launch/fed.py` (`run_federation` and its CLI).
         --rounds 2 --tiling tiled
     PYTHONPATH=src python -m repro_torch.launch.fed --dataset mnist \
         --rounds 2 --backend ann --ann-prefix-bits 10 --ann-probes 8
+    PYTHONPATH=src python -m repro_torch.launch.fed --dataset mnist \
+        --rounds 3 --attack lsh_cheat --attack-start 0
 
 Rounds run through `core.rounds.run_rounds`; every reselection is
-published to a host `Blockchain`, verified before returning. The
-JAX launcher's attacks, continuous service and sharded dry run are not
-ported yet.
+published to a host `Blockchain`, verified before returning. `--attack`
+instruments the round program with one of the paper's threat models
+(`core.adversary.resolve_threat`); accuracy is then the honest
+cohort's. The baselines are built by `core.rounds.make_program`, as in
+the JAX package. The JAX launcher's continuous service and sharded dry
+run are not ported yet.
 """
 from __future__ import annotations
 
@@ -25,8 +30,10 @@ import torch
 from repro_torch.configs.paper_models import (FedConfig, PAPER_FED_OPTIMA,
                                               aecg_tcn, mnist_cnn,
                                               recommended_dedupe, seeg_tcn)
-from repro_torch.core import (evaluate, init_state, resolve_schedule,
-                              run_rounds, wpfed_program)
+from repro_torch.core import (evaluate, init_state, instrument_program,
+                              resolve_schedule, resolve_threat, run_rounds,
+                              wpfed_program)
+from repro_torch.core.adversary import THREATS
 from repro_torch.core.chain import Blockchain, lsh_code_hex, sha256_commit
 from repro_torch.data import DATASETS
 from repro_torch.device import resolve_device
@@ -57,8 +64,10 @@ def run_federation(dataset: str = "mnist", rounds: int = 10,
                    num_clients: int = 0, seed: int = 0, fed: FedConfig = None,
                    backend: str = "auto", ref_mode: str = "personal",
                    tiling: str = "auto", schedule: str = "sync",
-                   reselect_every: int = 0, ann_prefix_bits: int = -1,
-                   ann_probes: int = -1, device=None, log=print):
+                   reselect_every: int = 0, attack: str = "none",
+                   attack_frac: float = 0.5, attack_start: int = -1,
+                   ann_prefix_bits: int = -1, ann_probes: int = -1,
+                   device=None, log=print):
     """Run a federation on `device` (the CUDA device when None; the CPU
     only when asked). `backend` drives both kernel-backed subsystems
     (selection and exchange) and the LSH projection; "ann" applies to
@@ -67,7 +76,11 @@ def run_federation(dataset: str = "mnist", rounds: int = 10,
     the FedConfig defaults) the ANN index. An explicit `fed` wins
     outright: backend/ref_mode/tiling/ann knobs apply only to the
     default-constructed config. ref_mode "public" also enables the
-    Eq. 7 duplicate-evidence dedupe. Returns (state, history)."""
+    Eq. 7 duplicate-evidence dedupe. `attack` (one of THREATS, or
+    "none") instruments the program with `resolve_threat` (seed + 31,
+    attackers the last int(M * attack_frac) clients; `attack_start=-1`
+    keeps the threat's default start, e.g. the §4.8 warm-up), and the
+    accuracy is then the honest cohort's. Returns (state, history)."""
     dev = resolve_device(device)
     if fed is not None and (backend != "auto" or ref_mode != "personal"
                             or tiling != "auto" or ann_prefix_bits >= 0
@@ -96,13 +109,22 @@ def run_federation(dataset: str = "mnist", rounds: int = 10,
     apply_fn = functools.partial(apply_client_model, client_template(mcfg))
     opt = adam(fed.lr)
     data = {k: torch.from_numpy(v).to(dev) for k, v in ds.stacked().items()}
-    state = init_state(lambda g: init_client_model(mcfg, g, dev), opt, fed,
-                       seed)
+    init_fn = lambda g: init_client_model(mcfg, g, dev)  # noqa: E731
+    state = init_state(init_fn, opt, fed, seed)
+    program = wpfed_program(apply_fn, opt, fed)
+    honest_mask = None
+    if attack != "none":
+        tm = resolve_threat(
+            attack, num_clients=fed.num_clients, attacker_frac=attack_frac,
+            init_fn=init_fn, seed=seed + 31,
+            start_round=None if attack_start < 0 else attack_start)
+        program = instrument_program(program, tm)
+        honest_mask = ~tm.attacker_mask
     chain = Blockchain()
     state, history = run_rounds(
-        wpfed_program(apply_fn, opt, fed), state, data, rounds=rounds,
-        schedule=sched,
-        eval_fn=lambda st, d: {"acc": evaluate(apply_fn, st, d)["mean_acc"]},
+        program, state, data, rounds=rounds, schedule=sched,
+        eval_fn=lambda st, d: {"acc": evaluate(
+            apply_fn, st, d, honest_mask=honest_mask)["mean_acc"]},
         on_reselect=chain_publisher(chain, fed.num_clients), log=log)
     if not chain.verify_chain():
         raise RuntimeError("host ledger integrity violated")
@@ -139,6 +161,16 @@ def main(argv=None):
                          "memory")
     ap.add_argument("--schedule", default="sync", choices=["sync", "gossip"])
     ap.add_argument("--reselect-every", type=int, default=0)
+    ap.add_argument("--attack", default="none",
+                    choices=("none",) + THREATS,
+                    help="threat model instrumenting the run "
+                         "(core.adversary.resolve_threat)")
+    ap.add_argument("--attack-frac", type=float, default=0.5,
+                    help="fraction of clients that attack (the tail of "
+                         "the client axis)")
+    ap.add_argument("--attack-start", type=int, default=-1,
+                    help="first attacked round (-1: the threat's default, "
+                         "e.g. poison's §4.8 warm-up)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device)")
     args = ap.parse_args(argv)
@@ -147,6 +179,9 @@ def main(argv=None):
                                 backend=args.backend, ref_mode=args.ref_mode,
                                 tiling=args.tiling, schedule=args.schedule,
                                 reselect_every=args.reselect_every,
+                                attack=args.attack,
+                                attack_frac=args.attack_frac,
+                                attack_start=args.attack_start,
                                 ann_prefix_bits=args.ann_prefix_bits,
                                 ann_probes=args.ann_probes,
                                 device=args.device)

@@ -70,6 +70,12 @@ def test_run_federation_needs_a_card_unless_told(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_federation("aecg", rounds=1, num_clients=3, log=None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_federation("aecg", rounds=1, num_clients=4, attack="lsh_cheat",
+                       attack_start=0, log=None)
+    _, hist = run_federation("aecg", rounds=1, num_clients=4, device="cpu",
+                             attack="lsh_cheat", attack_start=0, log=None)
+    assert 0.0 <= hist[0]["attacker_admission_rate"] <= 1.0
 
 
 def test_serve_needs_a_card_unless_told(monkeypatch):
