@@ -37,6 +37,7 @@ from repro_torch.core.exchange import (ExchangeResult, all_in_one_exchange,
                                        public_ref_logits)
 from repro_torch.core.rounds import RoundProgram, program_round
 from repro_torch.optim.optimizers import Optimizer, apply_updates
+from repro_torch.tree import tree_map
 
 REF_MODES = ("personal", "public")
 # random streams of one round (PICK_STREAM: ProxyFL's peer draw)
@@ -94,14 +95,6 @@ def seeded_generator(*parts: int) -> torch.Generator:
 def round_generator(seed: int, round_idx: int, stream: int) -> torch.Generator:
     """The CPU generator of one (seed, round, stream)."""
     return seeded_generator(seed, round_idx, stream)
-
-
-def tree_map(fn, tree, *rest):
-    """Map over the leaves of nested dicts (params, optimizer state)."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest))
-                for k, v in tree.items()}
-    return fn(tree, *rest)
 
 
 def client(tree, i: int):

@@ -21,6 +21,9 @@ the H100 is the 4 * N * pairs * dh operations on the tensor cores: f32 at
 keys and values and reads KV head h // (H // KV) for query head h through
 strides, without materialising the repeat. Both take the plain version
 for CPU tensors only; for CUDA tensors they launch the kernel or raise.
+The kernel has no backward (the JAX package has none either): on the
+card they raise when grad mode is on and q, k or v requires grad, rather
+than return an output without a gradient.
 """
 from __future__ import annotations
 
@@ -69,6 +72,13 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return plain_gqa_attention(q, k, v, causal, scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError(
+            "the flash-attention kernel has no backward, so its output "
+            "would carry no gradient to q, k or v; train through the "
+            "differentiable route: transformer.forward(..., "
+            "differentiable=True), as train.steps.lm_loss does")
     b, sq, h, dh = q.shape
     kvh, sk = k.shape[2], k.shape[1]
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:

@@ -16,6 +16,11 @@ Routing of `attn_forward` by `set_attn_impl`:
 | "chunked" | gqa_flash_attention | `_chunked_attn`            | naive   |
 | "naive"   | `_naive_attn`       | `_naive_attn`              | naive   |
 
+With `differentiable=True` (the training route, which `train.steps.
+lm_loss` passes down) "causal" and "bidir" follow the "window" column,
+as the JAX package's `attn_forward` routes every mode: the flash kernel
+has no backward, in the JAX package or here.
+
 Masks are applied with `masked_fill` and a Python scalar: a scalar
 tensor built on the card would be a host-to-device copy that
 synchronises the stream once per layer.
@@ -177,11 +182,16 @@ def _flash_attn(cfg, p, q, k, v, mode, out_shape):
 
 
 def attn_forward(cfg: ModelConfig, p, x, *, positions, mode: str,
-                 context=None, window: int = 0):
+                 context=None, window: int = 0,
+                 differentiable: bool = False):
     """Full-sequence attention.
 
     mode: "causal" | "window" | "bidir" | "cross".
     context: (B, Tc, D) for cross-attention.
+    differentiable: the training route, as the JAX package computes
+    every mode (`_naive_attn`, `_chunked_attn` past 2048^2 under
+    "auto"), which autograd differentiates; the flash kernel has no
+    backward and is never taken.
     Returns (out, (k, v)) so prefill can build the cache.
     """
     q = _project_q(cfg, p, x)
@@ -193,9 +203,10 @@ def attn_forward(cfg: ModelConfig, p, x, *, positions, mode: str,
             k = apply_rope(k, positions, cfg.rope_theta)
 
     sq, sk = q.shape[1], k.shape[1]
-    if _ATTN_IMPL != "naive" and mode in ("causal", "bidir"):
+    if _ATTN_IMPL != "naive" and mode in ("causal", "bidir") \
+            and not differentiable:
         out = _flash_attn(cfg, p, q, k, v, mode, x.shape)
-    elif mode == "window" and (
+    elif (mode == "window" or differentiable) and (
             _ATTN_IMPL == "chunked"
             or (_ATTN_IMPL == "auto" and sq * sk > _AUTO_THRESHOLD)):
         out = _chunked_attn(cfg, p, q, k, v, mode, window, x.shape)

@@ -19,6 +19,7 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -108,9 +109,25 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
 
 
 def _layer(tree, r: int):
-    """Slice r of a stacked block's params (views)."""
+    """Slice r of a stacked block's params (views); also takes the
+    per-rep tuples of `_unbind`."""
     return {k: _layer(v, r) if isinstance(v, dict) else v[r]
             for k, v in tree.items()}
+
+
+def _unbind(tree):
+    """A stacked block's params as per-rep tuples of views, from one
+    `unbind` per leaf. Under autograd each leaf's gradient is then one
+    stack of the per-rep gradients; indexing the stack once per rep
+    would instead add reps zero-padded full-size gradients."""
+    return {k: _unbind(v) if isinstance(v, dict) else v.unbind(0)
+            for k, v in tree.items()}
+
+
+def _reps(params: Params) -> int:
+    if "layers" not in params:
+        return 0
+    return next(iter(params["layers"][0]["ln"].values())).shape[0]
 
 
 def _blocks(cfg: ModelConfig, params: Params):
@@ -118,8 +135,7 @@ def _blocks(cfg: ModelConfig, params: Params):
     params) for every layer in depth order."""
     pattern = cfg.block_pattern
     if "layers" in params:
-        reps = next(iter(params["layers"][0]["ln"].values())).shape[0]
-        for r in range(reps):
+        for r in range(_reps(params)):
             for pi, t in enumerate(pattern):
                 yield pi, r, t, _layer(params["layers"][pi], r)
     for i, bp in enumerate(params.get("tail", ())):
@@ -136,12 +152,13 @@ def _block_mode(cfg: ModelConfig, t: str, window_override: int):
 
 
 def _apply_block(cfg: ModelConfig, t: str, p, x, *, positions,
-                 window_override: int = 0):
+                 window_override: int = 0, differentiable: bool = False):
     """Returns (x, (k, v)) of one "A" or "L" block."""
     h = apply_norm(cfg, p["ln"], x)
     mode, win = _block_mode(cfg, t, window_override)
     out, kv = attn.attn_forward(cfg, p["attn"], h, positions=positions,
-                                mode=mode, window=win)
+                                mode=mode, window=win,
+                                differentiable=differentiable)
     x = x + out
     if "mlp" in p:
         x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
@@ -160,13 +177,36 @@ def _embed(cfg: ModelConfig, params: Params, tokens):
 
 
 def forward(cfg: ModelConfig, params: Params, tokens, extra=None, *,
-            window_override: int = 0):
-    """tokens: (B, S) int -> (logits (B,S,V) f32, aux_loss scalar)."""
+            window_override: int = 0, remat: str = "none",
+            differentiable: bool = False):
+    """tokens: (B, S) int -> (logits (B,S,V) f32, aux_loss scalar).
+
+    differentiable: attention by the training route
+    (`attention.attn_forward`), which `train.steps.lm_loss` takes; the
+    default takes the flash kernel for "causal" and "bidir" on the card.
+    remat "block" recomputes each repetition of the block pattern in the
+    backward pass (`torch.utils.checkpoint`, non-reentrant), as the JAX
+    package's `jax.checkpoint` around its scan body does; the tail layers
+    are kept, as there."""
     check_supported(cfg)
+    if remat not in ("none", "block"):
+        raise ValueError(f"remat must be 'none' or 'block', got {remat!r}")
     x, positions = _embed(cfg, params, tokens)
-    for _, _, t, bp in _blocks(cfg, params):
-        x, _ = _apply_block(cfg, t, bp, x, positions=positions,
-                            window_override=window_override)
+    pattern = cfg.block_pattern
+    kw = dict(positions=positions, window_override=window_override,
+              differentiable=differentiable)
+    stacks = [_unbind(pos) for pos in params.get("layers", ())]
+
+    def rep_body(xc, r):
+        for pi, t in enumerate(pattern):
+            xc, _ = _apply_block(cfg, t, _layer(stacks[pi], r), xc, **kw)
+        return xc
+
+    for r in range(_reps(params)):
+        x = checkpoint(rep_body, x, r, use_reentrant=False) \
+            if remat == "block" else rep_body(x, r)
+    for i, bp in enumerate(params.get("tail", ())):
+        x, _ = _apply_block(cfg, pattern[i], bp, x, **kw)
     x = apply_norm(cfg, params["final_norm"], x)
     return (lm_logits(cfg, params["embed"], x),
             torch.zeros((), dtype=torch.float32, device=x.device))
@@ -188,8 +228,8 @@ def _cache_tree(cfg: ModelConfig, params: Params, make):
     cache: Params = {}
     pattern = cfg.block_pattern
     if "layers" in params:
-        reps = next(iter(params["layers"][0]["ln"].values())).shape[0]
-        cache["layers"] = tuple({"kv": make(t, (reps,))} for t in pattern)
+        cache["layers"] = tuple({"kv": make(t, (_reps(params),))}
+                                for t in pattern)
     cache["tail"] = tuple({"kv": make(pattern[i], ())}
                           for i in range(len(params.get("tail", ()))))
     return cache

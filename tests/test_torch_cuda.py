@@ -966,3 +966,56 @@ def test_served_tokens_equal_with_and_without_the_kernel(cuda):
     torch.testing.assert_close(a["logits"][0], b["logits"][0], rtol=1e-4,
                                atol=1e-4)
     assert (a["generated"] == b["generated"]).all()
+
+
+@pytest.mark.cuda
+def test_flash_wrapper_raises_where_a_gradient_would_drop(cuda):
+    """The kernel has no backward: with grad mode on and q, k or v
+    requiring grad the wrappers raise and name the training route,
+    rather than return an output that carries no gradient."""
+    q = torch.randn((1, 16, 2, 32), device=cuda, requires_grad=True)
+    k = torch.randn((1, 16, 1, 32), device=cuda)
+    before = flash_attention.KERNEL.launches
+    with pytest.raises(RuntimeError, match="differentiable=True"):
+        flash_attention.gqa_attention(q, k, k)
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention.flash_attention(q[:, :, 0], k[:, :, 0], k[:, :, 0])
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention.gqa_attention(q.detach(), k.requires_grad_(), k)
+    assert flash_attention.KERNEL.launches == before
+    with torch.no_grad():
+        out = flash_attention.gqa_attention(q, k, k)
+    assert out.shape == q.shape and not out.requires_grad
+    assert flash_attention.gqa_attention(q.detach(), k.detach(),
+                                         k.detach()).shape == q.shape
+    assert flash_attention.KERNEL.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", ["none", "block"])
+def test_train_step_on_the_card_gives_every_leaf_a_gradient(cuda, remat):
+    """The reduced minitron's train step on the card: every parameter leaf
+    gets a non-zero gradient, no flash launch, finite metrics, every leaf
+    moved by the update."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.optim import adamw
+    from repro_torch.train import (init_train_state, loss_and_grads,
+                                   make_train_step)
+    from repro_torch.tree import tree_leaves, tree_paths
+    cfg = get_config("minitron-4b").reduced()
+    opt = adamw(1e-3, weight_decay=0.1)
+    params, state = init_train_state(cfg, opt, _gen(0))
+    batch = {k: torch.as_tensor(v, device=cuda) for k, v in
+             TokenStream(cfg, 2, 64, seed=0).next_batch().items()}
+    flash_attention.KERNEL.launches = 0
+    _, grads = loss_and_grads(cfg, params, batch, remat=remat)
+    zero = ["/".join(p) for p, g in tree_paths(grads) if not bool(g.any())]
+    assert zero == []
+    before = [t.clone() for t in tree_leaves(params)]
+    params, state, metrics = make_train_step(cfg, opt, remat=remat)(
+        params, state, batch)
+    assert flash_attention.KERNEL.launches == 0
+    assert all(bool(v.isfinite()) for v in metrics.values())
+    assert all(not torch.equal(a, b)
+               for a, b in zip(before, tree_leaves(params)))

@@ -51,6 +51,10 @@ assert len(hist) == 1
 from repro_torch.launch.serve import serve
 res = serve("minitron-4b", batch=1, prompt_len=4, max_new=2, device="cpu")
 assert res["generated"].shape == (1, 2)
+from repro_torch.launch.train import train
+_, hist = train("minitron-4b", steps=1, batch=1, seq=4, device="cpu",
+                log=None)
+assert len(hist) == 1
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LOADED", bad)
@@ -86,6 +90,17 @@ def test_serve_needs_a_card_unless_told(monkeypatch):
     res = serve("minitron-4b", batch=1, prompt_len=4, max_new=2,
                 device="cpu")
     assert res["generated"].shape == (1, 2)
+
+
+def test_train_needs_a_card_unless_told(monkeypatch):
+    from repro_torch.launch.train import train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train("minitron-4b", steps=1, batch=1, seq=4, log=None)
+    params, hist = train("minitron-4b", steps=2, batch=1, seq=4,
+                         log_every=1, device="cpu", log=None)
+    assert [h["step"] for h in hist] == [0, 1]
+    assert params["final_norm"]["scale"].device.type == "cpu"
 
 
 @pytest.mark.parametrize("alone", [False, True])
