@@ -46,7 +46,9 @@
    Sq = Sk = 2048, dh = 128, f32, causal) and the same in bf16, at the
    JAX kernel's contract points, bidirectional with Sq != Sk, at lengths
    that are no tile multiple, in bf16, at dh = 256 and on the model's GQA
-   layout, timed beside torch's scaled_dot_product_attention
+   layout (Minitron-4B's 24 over 8 heads, grok-1's 48 over 8 and
+   whisper's bidirectional encoder: 12 heads, dh 64, 1,500 frames),
+   timed beside torch's scaled_dot_product_attention
    (`library_ms`, never called by the port) and bounded on its route
    (the tensor cores: f32 by 3xTF32 at 495 / 3 TFLOP/s, bf16 at 989;
    `cuda_core_bound_ms` at the f32 CUDA-core 67). The Hamming checks
@@ -112,9 +114,25 @@
    decode tokens/s, the peak device memory, the kernel's device time in
    a profiled prefill and a profile of three decode steps (host ms,
    device busy ms, idle share, launches, costliest kernels).
+   Then the other LM families at full width (`families_path`), batch 4,
+   32 new tokens, f32, random weights from seed 0, counts set to 0 just
+   before each `serve`: grok-1 (2 of 64 layers, prompt 2048: flash 2
+   launches), llama-3.2-vision (one (A, A, A, A, X) repetition, 5 of 100
+   layers, 1,601 vision patches: 4), recurrentgemma (26 layers: none,
+   its "L" blocks take the window route), xlstm (24 layers: none) and
+   whisper (12 + 12 layers, 1,500 frames, prompt 448: 12 bidir + 12
+   causal); no other kernel may launch. Where flash runs, the naive
+   attention on the same weights must agree as above; recurrentgemma,
+   xlstm and kimi-k2 (whose full width does not fit one card in f32;
+   its reduced config widened to 16 experts, top 8) run their reduced
+   config on the card and the CPU from the same weights (prefill logits
+   rtol 1e-4, atol 1e-4; the same tokens but after a near-tie). Prints
+   per model the layers run, parameters, prefill s, decode tokens/s,
+   peak memory, flash's device ms in a profiled prefill, three profiled
+   decode steps and grok's per-layer MoE dropped_frac.
 6. Prints {"phase": "seconds", ...}, the wall seconds of each section
    (build, kernel checks, main paths, profiles, attack, baselines,
-   serve), then {"kernels": [...]} for every kernel of the paths driven (the
+   serve, families, train), then {"kernels": [...]} for every kernel of the paths driven (the
    per-row ANN kernel, which no path takes since the route took the
    grouped one, is checked in 2 only), then, last,
    {"ok": true, "device": {...}}.
@@ -951,6 +969,28 @@ def profile_steps(torch, fn, iters: int = 3):
             "top_device_ms": by_name.most_common(5)}
 
 
+def same_tokens(torch, res, ref_run, label):
+    """Two serving runs on the same weights and prompts: prefill logits
+    within rtol 1e-4, atol 1e-4, and the same tokens except from a step
+    where `ref_run`'s two largest logits lie within 1e-3. Returns (max
+    abs prefill-logit difference, first differing step, first near-tie
+    step); raises on a disagreement."""
+    a, b = res["logits"][0].cpu(), ref_run["logits"][0].cpu()
+    lg_err = (a - b).abs().max().item()
+    torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    top2 = ref_run["logits"].topk(2, dim=-1).values
+    near = (top2[..., 0] - top2[..., 1] <= 1e-3).any(dim=1)   # per step
+    differ = (res["generated"] != ref_run["generated"]).any(axis=0)
+    first_near = int(near.nonzero()[0]) if bool(near.any()) else None
+    first_diff = int(differ.nonzero()[0][0]) if differ.any() else None
+    if first_diff is not None and (first_near is None
+                                   or first_diff < first_near):
+        raise AssertionError(f"served tokens differ from the {label} run at "
+                             f"step {first_diff} (first near-tie: "
+                             f"{first_near})")
+    return lg_err, first_diff, first_near
+
+
 def serve_path(torch, kernels):
     """Path 4: Minitron-4B served at full width on the card, through the
     flash-attention kernel and then, on the same weights, through the
@@ -994,19 +1034,7 @@ def serve_path(torch, kernels):
         attention.set_attn_impl("auto")
     if kernels["flash_attention"].launches != 0:
         raise AssertionError("the naive run launched the kernel")
-    lg_err = (logits[0] - naive["logits"][0]).abs().max().item()
-    torch.testing.assert_close(logits[0], naive["logits"][0], rtol=1e-4,
-                               atol=1e-4)
-    top2 = naive["logits"].topk(2, dim=-1).values
-    near = (top2[..., 0] - top2[..., 1] <= 1e-3).any(dim=1)   # per step
-    differ = (gen != naive["generated"]).any(axis=0)
-    first_near = int(near.nonzero()[0]) if bool(near.any()) else None
-    first_diff = int(differ.nonzero()[0][0]) if differ.any() else None
-    if first_diff is not None and (first_near is None
-                                   or first_diff < first_near):
-        raise AssertionError(f"served tokens differ from the naive run at "
-                             f"step {first_diff} (first near-tie: "
-                             f"{first_near})")
+    lg_err, first_diff, first_near = same_tokens(torch, res, naive, "naive")
 
     # the kernel's device time in one profiled prefill, then decode steps
     prompts = {"tokens": torch.as_tensor(np.random.RandomState(0).randint(
@@ -1042,6 +1070,217 @@ def serve_path(torch, kernels):
           "decode_step_profile": decode,
           "sample": gen[0][:8].tolist()})
     return launches
+
+
+# (arch, layers run (0: all), prompt_len, flash launches per prefill: one
+# per "A" layer, bidir and causal; "X" takes the naive cross route and
+# "L" the window route, "R"/"S"/"M" no attention)
+FAMILIES = (("grok-1-314b", 2, 2048, 2),
+            ("llama-3.2-vision-90b", 5, 2048, 4),
+            ("recurrentgemma-2b", 0, 2048, 0),
+            ("xlstm-350m", 0, 2048, 0),
+            ("whisper-small", 0, 448, 24))
+
+
+def greedy(torch, cfg, params, prompts, max_new):
+    """`launch.serve.serve`'s prefill and greedy decode on an explicit
+    config (the reduced configs held card against CPU, kimi-k2's widened
+    to 16 experts among them)."""
+    from repro_torch.train import make_prefill_step, make_serve_step
+    s = prompts["tokens"].shape[1]
+    prefill_step = make_prefill_step(cfg, cache_len=s + max_new)
+    serve_step = make_serve_step(cfg)
+    with torch.no_grad():
+        logits, cache = prefill_step(params, prompts)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        out, seen = [tok], [logits]
+        for i in range(max_new - 1):
+            tok, logits, cache = serve_step(params, cache, tok, s + i)
+            out.append(tok)
+            seen.append(logits)
+    return {"generated": torch.stack(out, dim=1).cpu().numpy(),
+            "logits": torch.stack(seen).cpu()}
+
+
+def reduced_card_vs_cpu(torch, kernels, arch, changes=None):
+    """`arch`'s reduced config (with `changes`) served on the card and on
+    the CPU from the same weights and prompts (batch 4, 128 tokens, 16
+    new): prefill logits within rtol 1e-4, atol 1e-4 and the same tokens
+    (`same_tokens`); the card may launch flash, once per "A" layer, and
+    nothing else."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import modality_stub
+    from repro_torch.models.transformer import init_params
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(get_config(arch).reduced(), **(changes or {}))
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    rs = np.random.RandomState(0)
+    prompts = {"tokens": torch.as_tensor(rs.randint(0, cfg.vocab_size,
+                                                    (4, 128)))}
+    prompts.update({k: torch.as_tensor(v) for k, v in
+                    modality_stub(cfg, 4, rs).items()})
+    cpu = greedy(torch, cfg, params, prompts, 16)
+    for k in kernels.values():
+        k.launches = 0
+    card = greedy(torch, cfg, tree_map(lambda t: t.cuda(), params),
+                  tree_map(lambda t: t.cuda(), prompts), 16)
+    launches = {n: k.launches for n, k in kernels.items() if k.launches}
+    want = {"flash_attention": cfg.num_layers} if "A" in cfg.block_pattern \
+        else {}
+    if launches != want:
+        raise AssertionError(f"reduced {arch} on the card launched "
+                             f"{launches}, not {want}")
+    lg_err, first_diff, first_near = same_tokens(torch, card, cpu, "CPU")
+    return {"config": {k: getattr(cfg, k) for k in (
+                "num_layers", "d_model", "num_experts", "experts_per_token")},
+            "kernel_launches": launches,
+            "prefill_logits_max_abs_diff_vs_cpu": lg_err,
+            "first_differing_step": first_diff,
+            "first_cpu_near_tie_step": first_near}
+
+
+def families_path(torch, kernels):
+    """Path 4b, the other LM families served at full width on the card
+    (`FAMILIES`), launch counts set to 0 just before each `serve`: flash
+    launches its count per prefill and no other kernel launches. Where
+    flash runs, the same call on the same weights under the naive
+    attention launches nothing and agrees (`same_tokens`); where no
+    kernel runs (recurrentgemma, xlstm) and for kimi-k2 (too large at
+    full width for one card in f32), the reduced config on the card
+    against the CPU (`reduced_card_vs_cpu`). Prints per model the layers
+    run, the parameter count, prefill s, decode tokens/s, peak memory,
+    where flash runs its device ms in one profiled prefill, a profile of
+    three decode steps and, for the MoE, each layer's dropped_frac in
+    that prefill."""
+    import dataclasses
+
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import modality_stub
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import attention, moe
+    from repro_torch.train import make_prefill_step, make_serve_step
+    from repro_torch.tree import tree_leaves
+    out = {}
+    for arch, layers, prompt_len, flash_want in FAMILIES:
+        cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        kw = dict(reduced=False, batch=4, prompt_len=prompt_len, max_new=32,
+                  seed=0, device="cuda", num_layers=layers)
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res = serve(arch, **kw)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        launches = {name: k.launches for name, k in kernels.items()}
+        emit({"phase": "main_path_launches", "run": f"serve {arch}",
+              **launches})
+        if launches["flash_attention"] != flash_want or any(
+                v for name, v in launches.items()
+                if name != "flash_attention"):
+            raise AssertionError(f"serving {arch} must launch "
+                                 f"flash_attention {flash_want} times and "
+                                 f"nothing else: {launches}")
+        logits, gen = res["logits"], res["generated"]
+        if not (bool(logits.isfinite().all()) and gen.shape == (4, 32)
+                and logits.shape == (32, 4, cfg.vocab_size)):
+            raise AssertionError(f"{arch}: non-finite logits or wrong shapes")
+        row = {"phase": "families", "arch": arch,
+               "num_layers": cfg.num_layers,
+               "encoder_layers": cfg.encoder_layers,
+               "params": sum(t.numel() for t in tree_leaves(res["params"])),
+               "batch": 4, "prompt_len": prompt_len, "max_new": 32,
+               "prefill_s": res["prefill_s"],
+               "decode_tok_per_s": res["decode_tok_per_s"],
+               "peak_memory_bytes": peak, "flash_launches": flash_want}
+        if flash_want:
+            for k in kernels.values():
+                k.launches = 0
+            attention.set_attn_impl("naive")
+            try:
+                naive = serve(arch, params=res["params"], **kw)
+            finally:
+                attention.set_attn_impl("auto")
+            if any(k.launches for k in kernels.values()):
+                raise AssertionError(f"the naive {arch} run launched a "
+                                     "kernel")
+            lg_err, first_diff, first_near = same_tokens(torch, res, naive,
+                                                         "naive")
+            row.update({"naive_prefill_s": naive["prefill_s"],
+                        "prefill_logits_max_abs_diff_vs_naive": lg_err,
+                        "first_differing_step": first_diff,
+                        "first_naive_near_tie_step": first_near})
+            del naive
+
+        # flash's device time in one profiled prefill (each MoE layer's
+        # dropped_frac recorded there), then three decode steps
+        rs = np.random.RandomState(0)
+        prompts = {"tokens": torch.as_tensor(rs.randint(
+            0, cfg.vocab_size, (4, prompt_len)), device="cuda")}
+        prompts.update({k: torch.as_tensor(v, device="cuda") for k, v in
+                        modality_stub(cfg, 4, rs).items()})
+        step = make_prefill_step(cfg, cache_len=prompt_len + 32)
+        dropped, moe_forward = [], moe.moe_forward
+
+        def recording(*a):
+            y, aux = moe_forward(*a)
+            dropped.append(aux["dropped_frac"])
+            return y, aux
+        moe.moe_forward = recording
+        try:
+            if flash_want:
+                with torch.no_grad(), profile(activities=[
+                        ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    _, cache = step(res["params"], prompts)
+                    torch.cuda.synchronize()
+                dev = [e for e in prof.events()
+                       if is_device_work(e, DeviceType)]
+                flash = [e.time_range.elapsed_us() / 1e3 for e in dev
+                         if "flash_fwd_kernel" in e.name]
+                row.update({"flash_device_ms_in_prefill": sum(flash),
+                            "flash_launches_in_profile": len(flash),
+                            "prefill_device_ms": sum(
+                                e.time_range.elapsed_us() for e in dev) / 1e3})
+                del prof, dev
+            else:                 # no kernel to time; xlstm's prefill is
+                with torch.no_grad():          # ~10^5 launches
+                    _, cache = step(res["params"], prompts)
+        finally:
+            moe.moe_forward = moe_forward
+        serve_step = make_serve_step(cfg)
+        tok = torch.as_tensor(gen[:, 0], device="cuda")
+        with torch.no_grad():
+            decode = profile_steps(torch, lambda: serve_step(
+                res["params"], cache, tok, prompt_len))
+        row.update({"decode_step_profile": decode,
+                    "sample": gen[0][:8].tolist()})
+        if cfg.is_moe:
+            row["moe_dropped_frac_in_prefill"] = [float(d) for d in dropped]
+        if not flash_want:
+            row["reduced_card_vs_cpu"] = reduced_card_vs_cpu(torch, kernels,
+                                                             arch)
+        emit(row)
+        out[arch] = row
+        del res, cache
+        torch.cuda.empty_cache()
+    row = {"phase": "families", "arch": "kimi-k2-1t-a32b",
+           "full_width": "not run: one layer's experts are 67.6 GB in f32",
+           "reduced_card_vs_cpu": reduced_card_vs_cpu(
+               torch, kernels, "kimi-k2-1t-a32b",
+               {"num_experts": 16, "experts_per_token": 8})}
+    emit(row)
+    out["kimi-k2-1t-a32b"] = row
+    return out
 
 
 def profile_round(run_federation, names, tiling: str = "auto",
@@ -1743,7 +1982,11 @@ def main() -> int:
             (2, 512, 512, 128, True, torch.bfloat16, {}),
             (2, 512, 512, 256, True, torch.float32, {}),
             (4, 2048, 2048, 128, True, torch.float32,
-             {"heads": (24, 8)}))
+             {"heads": (24, 8)}),
+            (4, 1500, 1500, 64, False, torch.float32,      # whisper encoder
+             {"heads": (12, 12)}),
+            (4, 2048, 2048, 128, True, torch.float32,      # grok-1's GQA
+             {"heads": (48, 8)}))
     ]
     for name, shape, is_main, run in checks:
         res = run()
@@ -1813,6 +2056,8 @@ def main() -> int:
         "flash_attention"]
     lap("serve")
     torch.cuda.empty_cache()
+    families_path(torch, kernels)
+    lap("families")
 
     # 6. LM training: card against CPU, Minitron-4B at full width,
     # checkpoints; no kernel lies on this path

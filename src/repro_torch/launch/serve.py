@@ -6,14 +6,21 @@ federated mode `serve_personalized` needs the service, a later slice).
         --arch phi3-medium-14b --batch 2 --prompt-len 24 --max-new 8
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch minitron-4b --full --batch 4 --prompt-len 2048 --max-new 32
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch grok-1-314b --full --layers 2 --prompt-len 2048 --max-new 32
 
-Runs on the CUDA device unless `--device` names another. On the card the
-prefill's "causal" and "bidir" attention goes through the hand-written
-flash-attention kernel (`kernels/csrc/flash_attention.cu`).
+Every arch of the zoo is served: dense, MoE (grok-1, kimi-k2), the
+RG-LRU hybrid (recurrentgemma), xLSTM, the encoder-decoder (whisper; the
+audio frames are `data.modality_stub`'s) and the VLM (llama-3.2-vision,
+with stub patch embeddings). Runs on the CUDA device unless `--device`
+names another. On the card the prefill's "causal" and "bidir" attention
+goes through the hand-written flash-attention kernel
+(`kernels/csrc/flash_attention.cu`).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -33,12 +40,17 @@ def _sync(dev: torch.device) -> None:
 
 def serve(arch: str, *, batch: int = 4, prompt_len: int = 32,
           max_new: int = 16, reduced: bool = True, seed: int = 0,
-          window_override: int = 0, device=None, params=None):
+          window_override: int = 0, num_layers: int = 0, device=None,
+          params=None):
     """Prefill `batch` prompts of `prompt_len` tokens and decode
-    `max_new` tokens greedily. The prompts are the JAX package's
-    (`np.random.RandomState(seed)`); the weights are `params` (e.g. from
-    `models.convert.lm_params_from_jax`) or drawn from a `torch.Generator`
-    seeded with `seed` on the device. Returns the generated tokens
+    `max_new` tokens greedily. The prompts (and the audio / vision stubs)
+    are the JAX package's (`np.random.RandomState(seed)`); the weights
+    are `params` (e.g. from `models.convert.lm_params_from_jax`) or drawn
+    from a `torch.Generator` seeded with `seed` on the device.
+    `num_layers` > 0 cuts the (decoder) depth to that many layers, the
+    cut one card forces on the largest archs at full width (grok-1 at 2
+    of 64 layers is 46 GB of f32 weights); 0 keeps the config's depth.
+    Returns the generated tokens
     (B, max_new), the prefill's seconds and the decode's tokens per
     second (device synchronised before every clock read), the logits each
     token was chosen from (max_new, B, V) f32 (row 0 the prefill's) and
@@ -47,6 +59,8 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32,
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
+    if num_layers:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
     if params is None:
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
@@ -97,14 +111,17 @@ def main(argv=None):
     ap.add_argument("--full", action="store_true",
                     help="the published widths (default: the reduced config)")
     ap.add_argument("--window", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers (0: the "
+                         "config's)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device)")
     args = ap.parse_args(argv)
     res = serve(args.arch, batch=args.batch, prompt_len=args.prompt_len,
                 max_new=args.max_new, reduced=not args.full,
-                window_override=args.window, seed=args.seed,
-                device=args.device)
+                window_override=args.window, num_layers=args.layers,
+                seed=args.seed, device=args.device)
     print(f"prefill {res['prefill_s']:.2f}s, "
           f"decode {res['decode_tok_per_s']:.1f} tok/s")
     print("sample:", res["generated"][0][:16])

@@ -40,7 +40,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import apply_rope
+from repro_torch.models.layers import apply_rope, zeros
 
 NEG_INF = -1e30
 
@@ -55,6 +55,9 @@ def attn_shapes(cfg: ModelConfig):
         p["bk"] = (kv * dh,)
         p["bv"] = (kv * dh,)
     return p
+
+
+ATTN_INIT = {"bq": zeros(), "bk": zeros(), "bv": zeros()}
 
 
 def _project_q(cfg, p, x):

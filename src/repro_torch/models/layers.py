@@ -28,6 +28,42 @@ def dense_init(shape, gen: torch.Generator, dtype=torch.float32,
     return t.mul_(std).to(dtype)
 
 
+def normal(scale: float):
+    """Init rule: `dense_init` at a fixed `scale`."""
+    return lambda shape, gen, dtype: dense_init(shape, gen, dtype, scale)
+
+
+def zeros(dtype=None):
+    """Init rule: zeros, in `dtype` whatever the params' dtype (or in
+    theirs)."""
+    return lambda shape, gen, dt: torch.zeros(shape, dtype=dtype or dt,
+                                              device=gen.device)
+
+
+def ones(shape, gen, dtype):
+    return torch.ones(shape, dtype=dtype, device=gen.device)
+
+
+def uniform(low: float, high: float):
+    """Init rule: uniform in [low, high), in f32 whatever the params'
+    dtype."""
+    def init(shape, gen, dtype):
+        t = torch.empty(shape, dtype=torch.float32, device=gen.device)
+        return t.uniform_(low, high, generator=gen)
+    return init
+
+
+def init_leaves(shapes, gen: torch.Generator, dtype, lead=(), rules=None):
+    """{name: shape} -> {name: tensor of shape (*lead, *shape)} drawn from
+    `gen` on its device: by `rules[name]` (one of the rules above) where
+    the module names one, else `dense_init` at fan_in**-0.5. A stacked
+    leaf (lead = (reps,)) is drawn whole; its fan-in is still shape[-2],
+    so every leaf the default draws is a matrix."""
+    rules = rules or {}
+    return {name: rules.get(name, dense_init)((*lead, *shape), gen, dtype)
+            for name, shape in shapes.items()}
+
+
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
@@ -35,6 +71,9 @@ def norm_shapes(cfg: ModelConfig):
     if cfg.norm == "layernorm":
         return {"scale": (cfg.d_model,), "bias": (cfg.d_model,)}
     return {"scale": (cfg.d_model,)}
+
+
+NORM_INIT = {"scale": ones, "bias": zeros()}
 
 
 def apply_norm(cfg: ModelConfig, p, x: torch.Tensor,
@@ -81,6 +120,9 @@ def mlp_shapes(cfg: ModelConfig):
     return p
 
 
+MLP_INIT = {"bi": zeros(), "bo": zeros()}
+
+
 def apply_mlp(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     h = x @ p["wi"]
     if cfg.mlp_bias:
@@ -105,6 +147,9 @@ def embed_shapes(cfg: ModelConfig):
     if not cfg.tie_embeddings:
         p["lm_head"] = (cfg.d_model, cfg.vocab_size)
     return p
+
+
+EMBED_INIT = {"tok": normal(1.0), "pos": normal(0.02)}
 
 
 def embed_tokens(cfg: ModelConfig, p, tokens: torch.Tensor) -> torch.Tensor:

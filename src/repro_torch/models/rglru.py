@@ -1,0 +1,117 @@
+"""RG-LRU recurrent block (RecurrentGemma, arXiv:2402.19427; the port of
+`repro/models/rglru.py`).
+
+Block: x -> [linear_x -> causal depthwise conv1d -> RG-LRU] * gelu(linear_gate)
+         -> linear_out
+
+RG-LRU recurrence (real-gated linear recurrent unit):
+    r_t = sigmoid(u_t W_ra + b_ra)            # recurrence gate
+    i_t = sigmoid(u_t W_rx + b_rx)            # input gate
+    log a_t = -c * softplus(Lambda) * r_t     # c = 8
+    h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * u_t)
+
+The prefill runs the linear recurrence as a log-depth inclusive scan
+over time (`_linear_scan`: Hillis-Steele doubling, ceil(log2 S) steps of
+whole-tensor work, where the JAX package runs `lax.associative_scan`);
+a loop over S steps would cost S steps of host time per layer. Decode is
+the one-step recurrence on the (h, conv window) state.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import uniform, zeros
+
+_C = 8.0
+
+
+def rglru_shapes(cfg: ModelConfig):
+    d = cfg.d_model
+    w = cfg.lru_width or d
+    return {"w_in": (d, w), "w_gate": (d, w),
+            "conv_w": (cfg.conv1d_width, w), "conv_b": (w,),
+            "w_ra": (w, w), "b_ra": (w,), "w_rx": (w, w), "b_rx": (w,),
+            "lam": (w,), "w_out": (w, d)}
+
+
+# conv_w (cw, W) has fan-in cw, so the default draw is JAX's cw**-0.5
+RGLRU_INIT = {"conv_b": zeros(), "b_ra": zeros(), "b_rx": zeros(),
+              "lam": uniform(0.9, 0.999)}
+
+
+def _gelu(x):
+    return F.gelu(x, approximate="tanh")      # jax.nn.gelu's default
+
+
+def _conv1d_causal(u, w, b):
+    """Depthwise causal conv. u: (B,S,W), w: (cw,W): tap j reads u_{t-j}
+    with weight w[j]."""
+    cw, s = w.shape[0], u.shape[1]
+    pad = F.pad(u, (0, 0, cw - 1, 0))
+    out = torch.zeros_like(u)
+    for j in range(cw):
+        out = out + pad[:, j:j + s, :] * w[cw - 1 - j]
+    return out + b
+
+
+def _gates(p, u):
+    r = torch.sigmoid(u @ p["w_ra"] + p["b_ra"])
+    i = torch.sigmoid(u @ p["w_rx"] + p["b_rx"])
+    log_a = -_C * F.softplus(p["lam"].to(torch.float32)) \
+        * r.to(torch.float32)
+    a = torch.exp(log_a)
+    gated_in = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) \
+        * (i.to(torch.float32) * u.to(torch.float32))
+    return a, gated_in
+
+
+def _linear_scan(a, b):
+    """Inclusive scan of h_t = a_t h_{t-1} + b_t (h_{-1} = 0) over axis 1:
+    after the step of offset d, (a_t, b_t) composes the 2d steps ending
+    at t (the associative combine (a1, b1), (a2, b2) -> (a1 a2, a2 b1 +
+    b2))."""
+    s, d = a.shape[1], 1
+    while d < s:
+        b = torch.cat([b[:, :d], a[:, d:] * b[:, :-d] + b[:, d:]], dim=1)
+        a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], dim=1)
+        d *= 2
+    return b
+
+
+def rglru_forward(cfg: ModelConfig, p, x):
+    """Prefill path. x: (B,S,D) -> (out (B,S,D), state)."""
+    raw = x @ p["w_in"]
+    u = _conv1d_causal(raw, p["conv_w"], p["conv_b"])
+    a, gin = _gates(p, u)                                 # (B,S,W) f32
+    h = _linear_scan(a, gin).to(x.dtype)
+    gate = _gelu(x @ p["w_gate"])
+    out = (h * gate) @ p["w_out"]
+    cw = cfg.conv1d_width
+    # the state keeps the raw x @ w_in tail, not the convolved one
+    state = {"h": h[:, -1].to(torch.float32),
+             "conv": raw[:, max(raw.shape[1] - (cw - 1), 0):, :]}
+    return out, state
+
+
+def init_rglru_state(cfg: ModelConfig, batch: int, dtype, device=None):
+    w = cfg.lru_width or cfg.d_model
+    return {"h": torch.zeros((batch, w), dtype=torch.float32, device=device),
+            "conv": torch.zeros((batch, cfg.conv1d_width - 1, w),
+                                dtype=dtype, device=device)}
+
+
+def rglru_decode(cfg: ModelConfig, p, x, state):
+    """One-step decode. x: (B,1,D). state: {"h": (B,W), "conv": (B,cw-1,W)}.
+    Returns (out (B,1,D), new state)."""
+    raw = x @ p["w_in"]                                   # (B,1,W)
+    hist = torch.cat([state["conv"].to(raw.dtype), raw], dim=1)
+    # the prefill's conv gives u_{t-k} weight w[k]; hist runs oldest to
+    # newest, so the kernel is reversed here
+    u = torch.einsum("btw,tw->bw", hist, p["conv_w"].flip(0)) + p["conv_b"]
+    a, gin = _gates(p, u)                                 # (B,W)
+    h = a * state["h"] + gin
+    gate = _gelu(x @ p["w_gate"])[:, 0]
+    out = (h.to(x.dtype) * gate) @ p["w_out"]
+    return out[:, None, :], {"h": h, "conv": hist[:, 1:, :]}

@@ -1,5 +1,5 @@
-"""Model assembly: init / forward / prefill / decode of the dense
-transformer families (the port of `repro/models/transformer.py`).
+"""Model assembly: init / forward / prefill / decode for every family of
+the transformer zoo (the port of `repro/models/transformer.py`).
 
 Depth is ``reps`` repetitions of ``cfg.block_pattern`` plus a ``tail``
 for depths not divisible by the pattern length. As in the JAX package,
@@ -8,11 +8,14 @@ on a leading (reps,) axis: JAX layer ``r * len(pattern) + pi`` is slice
 ``[r]`` of position ``pi``; tail layer ``i`` follows the reps. The port
 runs the repetitions as a Python loop over those slices (views, no copy).
 
-This slice covers blocks "A" (global causal) and "L" (sliding window)
-with a dense MLP: the dense family. MoE, the recurrent blocks ("R",
-"S", "M"), cross-attention ("X", the VLM) and the encoder-decoder raise
-`NotImplementedError` (ROADMAP.md, A, next slices: the LM substrate's
-`moe` / `rglru` / `xlstm` / enc-dec / VLM modules).
+Families:
+  dense / moe        "A" / "L" blocks (+ MoE FFN, `moe.py`)
+  hybrid             ("R","R","L") RecurrentGemma pattern (`rglru.py`)
+  ssm                ("S","M") xLSTM pattern (`xlstm.py`)
+  vlm                ("A"x4,"X") with a vision-patch projector (stub tower)
+  audio              encoder (bidir "A") + decoder ("A" + cross) - the
+                     conv frontend is stubbed: the encoder's input is
+                     frame embeddings
 """
 from __future__ import annotations
 
@@ -23,89 +26,90 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import (apply_mlp, apply_norm, dense_init,
-                                       embed_shapes, embed_tokens, lm_logits,
+from repro_torch.models import moe, rglru, xlstm
+from repro_torch.models.layers import (EMBED_INIT, MLP_INIT, NORM_INIT,
+                                       apply_mlp, apply_norm, embed_shapes,
+                                       embed_tokens, init_leaves, lm_logits,
                                        mlp_shapes, norm_shapes)
+from repro_torch.tree import tree_map
 
 Params = Dict[str, Any]
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for what this slice does not port."""
-    missing = []
-    if cfg.is_moe:
-        missing.append("MoE (moe.py)")
-    if cfg.is_encdec:
-        missing.append("the encoder-decoder (encode_audio)")
-    if cfg.vision_tokens:
-        missing.append("the vision projector")
-    blocks = sorted(set(cfg.block_pattern) - set("AL"))
-    if blocks:
-        missing.append(f"block types {blocks} (rglru.py / xlstm.py / "
-                       "cross-attention)")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet; see "
-            "ROADMAP.md, A, next slices (the LM substrate: moe / rglru / "
-            "xlstm / enc-dec / VLM)")
 
 
 # ===========================================================================
 # init
 # ===========================================================================
-def block_shapes(cfg: ModelConfig, t: str):
-    p: Params = {"ln": norm_shapes(cfg), "attn": attn.attn_shapes(cfg)}
+def _block_parts(cfg: ModelConfig, t: str, decoder: bool):
+    """(name, {leaf: shape}, init rules) of each part of a block."""
+    norm = (norm_shapes(cfg), NORM_INIT)
+    parts = [("ln", *norm)]
+    if t in "ALX":
+        parts.append(("attn", attn.attn_shapes(cfg), attn.ATTN_INIT))
+    elif t == "R":
+        parts.append(("rec", rglru.rglru_shapes(cfg), rglru.RGLRU_INIT))
+    elif t == "S":
+        parts.append(("rec", xlstm.slstm_shapes(cfg), xlstm.SLSTM_INIT))
+    elif t == "M":
+        parts.append(("rec", xlstm.mlstm_shapes(cfg), xlstm.MLSTM_INIT))
+    if decoder and cfg.is_encdec:
+        parts += [("ln_x", *norm),
+                  ("xattn", attn.attn_shapes(cfg), attn.ATTN_INIT)]
     if cfg.d_ff > 0:
-        p["ln2"] = norm_shapes(cfg)
-        p["mlp"] = mlp_shapes(cfg)
-    return p
+        parts += [("ln2", *norm),
+                  ("mlp", moe.moe_shapes(cfg), {}) if cfg.is_moe
+                  else ("mlp", mlp_shapes(cfg), MLP_INIT)]
+    return parts
+
+
+def block_shapes(cfg: ModelConfig, t: str, *, decoder: bool = False):
+    return {name: shapes for name, shapes, _ in _block_parts(cfg, t, decoder)}
+
+
+def _param_tree(cfg: ModelConfig, make) -> Params:
+    """The params' structure, each part's leaves from `make(shapes, rules,
+    lead)` (`lead`: the stacked dims)."""
+    pattern = cfg.block_pattern
+    reps, tail = cfg.pattern_reps, cfg.pattern_tail
+    decoder = cfg.is_encdec
+
+    def block(t, lead, decoder):
+        return {name: make(shapes, rules, lead)
+                for name, shapes, rules in _block_parts(cfg, t, decoder)}
+
+    tree: Params = {"embed": make(embed_shapes(cfg), EMBED_INIT, ())}
+    if reps > 0:
+        tree["layers"] = tuple(block(t, (reps,), decoder) for t in pattern)
+    tree["tail"] = tuple(block(pattern[i], (), decoder)
+                         for i in range(tail))
+    tree["final_norm"] = make(norm_shapes(cfg), NORM_INIT, ())
+    if cfg.is_encdec:
+        tree["encoder"] = {
+            "pos": make({"pos": (cfg.encoder_seq_len, cfg.d_model)},
+                        EMBED_INIT, ())["pos"],
+            "layers": (block("A", (cfg.encoder_layers,), False),),
+            "final_norm": make(norm_shapes(cfg), NORM_INIT, ())}
+    if cfg.vision_tokens:
+        tree["vision_proj"] = make(
+            {"w": (cfg.vision_dim or cfg.d_model, cfg.d_model)}, {}, ())["w"]
+    return tree
 
 
 def param_shapes(cfg: ModelConfig) -> Params:
     """The shape of every parameter (a `torch.Size`), in `init_params`'
     structure."""
-    check_supported(cfg)
-    pattern = cfg.block_pattern
-    reps, tail = cfg.pattern_reps, cfg.pattern_tail
-
-    def leaves(tree, lead=()):
-        return {k: leaves(v, lead) if isinstance(v, dict)
-                else torch.Size((*lead, *v)) for k, v in tree.items()}
-
-    shapes: Params = {"embed": leaves(embed_shapes(cfg))}
-    if reps > 0:
-        shapes["layers"] = tuple(leaves(block_shapes(cfg, t), (reps,))
-                                 for t in pattern)
-    shapes["tail"] = tuple(leaves(block_shapes(cfg, pattern[i]))
-                           for i in range(tail))
-    shapes["final_norm"] = leaves(norm_shapes(cfg))
-    return shapes
-
-
-def _init_leaf(name: str, shape, gen, dtype):
-    if name == "scale":
-        return torch.ones(shape, dtype=dtype, device=gen.device)
-    if name == "bias" or name in ("bq", "bk", "bv", "bi", "bo"):
-        return torch.zeros(shape, dtype=dtype, device=gen.device)
-    if name == "tok":
-        return dense_init(shape, gen, dtype, scale=1.0)
-    if name == "pos":
-        return dense_init(shape, gen, dtype, scale=0.02)
-    return dense_init(shape, gen, dtype)
+    return _param_tree(cfg, lambda shapes, rules, lead: {
+        k: torch.Size((*lead, *s)) for k, s in shapes.items()})
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator,
                 dtype=torch.float32) -> Params:
     """Random weights drawn from `gen`, on its device: the JAX init's
-    distributions (truncated-normal fan-in, embeddings at scale 1, norms
-    at 1 and biases at 0), not its numbers."""
-    def build(tree, name=""):
-        if isinstance(tree, torch.Size):
-            return _init_leaf(name, tree, gen, dtype)
-        if isinstance(tree, tuple):
-            return tuple(build(t) for t in tree)
-        return {k: build(v, k) for k, v in tree.items()}
-    return build(param_shapes(cfg))
+    distributions (truncated-normal fan-in, each module's own rules for
+    the rest: embeddings at scale 1, norms at 1, biases at 0, RG-LRU's
+    `lam` uniform in [0.9, 0.999), mLSTM's `w_if` at 0.01), not its
+    numbers."""
+    return _param_tree(cfg, lambda shapes, rules, lead: init_leaves(
+        shapes, gen, dtype, lead, rules))
 
 
 def _layer(tree, r: int):
@@ -124,26 +128,24 @@ def _unbind(tree):
             for k, v in tree.items()}
 
 
-def _reps(params: Params) -> int:
-    if "layers" not in params:
-        return 0
-    return next(iter(params["layers"][0]["ln"].values())).shape[0]
+def _reps(layers) -> int:
+    return next(iter(layers[0]["ln"].values())).shape[0] if layers else 0
 
 
 def _blocks(cfg: ModelConfig, params: Params):
     """(pattern position or None, rep or tail index, block type, block
     params) for every layer in depth order."""
     pattern = cfg.block_pattern
-    if "layers" in params:
-        for r in range(_reps(params)):
-            for pi, t in enumerate(pattern):
-                yield pi, r, t, _layer(params["layers"][pi], r)
+    layers = params.get("layers", ())
+    for r in range(_reps(layers)):
+        for pi, t in enumerate(pattern):
+            yield pi, r, t, _layer(layers[pi], r)
     for i, bp in enumerate(params.get("tail", ())):
         yield None, i, pattern[i], bp
 
 
 # ===========================================================================
-# full-sequence forward (prefill)
+# full-sequence forward (train / prefill)
 # ===========================================================================
 def _block_mode(cfg: ModelConfig, t: str, window_override: int):
     if t == "A" and not window_override:
@@ -151,65 +153,141 @@ def _block_mode(cfg: ModelConfig, t: str, window_override: int):
     return "window", (window_override or cfg.window)
 
 
-def _apply_block(cfg: ModelConfig, t: str, p, x, *, positions,
+def _apply_block(cfg: ModelConfig, t: str, p, x, *, positions, context,
                  window_override: int = 0, differentiable: bool = False):
-    """Returns (x, (k, v)) of one "A" or "L" block."""
+    """Returns (x, MoE load-balance loss or None, the block's decode
+    cache entries: "kv" (k, v) for "A"/"L" and "X", "state" for "R"/"S"/
+    "M", "cross" (k, v) in the encoder-decoder's decoder)."""
     h = apply_norm(cfg, p["ln"], x)
-    mode, win = _block_mode(cfg, t, window_override)
-    out, kv = attn.attn_forward(cfg, p["attn"], h, positions=positions,
-                                mode=mode, window=win,
-                                differentiable=differentiable)
+    kw = dict(positions=positions, differentiable=differentiable)
+    entries = {}
+    if t in "AL":
+        mode, win = _block_mode(cfg, t, window_override)
+        if cfg.is_encdec and t == "A" and context is None:
+            mode = "bidir"                                 # encoder block
+        out, entries["kv"] = attn.attn_forward(cfg, p["attn"], h, mode=mode,
+                                               window=win, **kw)
+    elif t == "X":
+        out, entries["kv"] = attn.attn_forward(cfg, p["attn"], h,
+                                               mode="cross", context=context,
+                                               **kw)
+    elif t == "R":
+        out, entries["state"] = rglru.rglru_forward(cfg, p["rec"], h)
+    elif t == "S":
+        out, entries["state"] = xlstm.slstm_forward(cfg, p["rec"], h)
+    else:
+        out, entries["state"] = xlstm.mlstm_forward(cfg, p["rec"], h)
     x = x + out
+    if "xattn" in p and context is not None:               # enc-dec decoder
+        hx = apply_norm(cfg, p["ln_x"], x)
+        out, entries["cross"] = attn.attn_forward(
+            cfg, p["xattn"], hx, mode="cross", context=context, **kw)
+        x = x + out
+    aux = None
     if "mlp" in p:
-        x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
-    return x, kv
+        h2 = apply_norm(cfg, p["ln2"], x)
+        if cfg.is_moe:
+            out, moe_aux = moe.moe_forward(cfg, p["mlp"], h2)
+            aux = moe_aux["load_balance"]
+        else:
+            out = apply_mlp(cfg, p["mlp"], h2)
+        x = x + out
+    return x, aux, entries
+
+
+def _run_stack(cfg: ModelConfig, params, x, *, positions, context, pattern,
+               window_override=0, remat: str = "none",
+               differentiable: bool = False):
+    """The repetitions, then the tail -> (x, summed MoE aux loss)."""
+    if remat not in ("none", "block"):
+        raise ValueError(f"remat must be 'none' or 'block', got {remat!r}")
+    kw = dict(positions=positions, context=context,
+              window_override=window_override, differentiable=differentiable)
+    stacks = [_unbind(pos) for pos in params.get("layers", ())]
+
+    def rep_body(xc, r):
+        auxes = []
+        for pi, t in enumerate(pattern):
+            xc, aux, _ = _apply_block(cfg, t, _layer(stacks[pi], r), xc,
+                                      **kw)
+            if aux is not None:
+                auxes.append(aux)
+        return xc, auxes
+
+    auxes = []
+    for r in range(_reps(params.get("layers", ()))):
+        x, aux_r = checkpoint(rep_body, x, r, use_reentrant=False) \
+            if remat == "block" else rep_body(x, r)
+        auxes += aux_r
+    for i, bp in enumerate(params.get("tail", ())):
+        x, aux, _ = _apply_block(cfg, pattern[i], bp, x, **kw)
+        if aux is not None:
+            auxes.append(aux)
+    return x, sum(auxes, torch.zeros((), dtype=torch.float32,
+                                     device=x.device))
+
+
+def _positions(b: int, s: int, device):
+    return torch.arange(s, device=device).expand(b, s)
+
+
+def encode_audio(cfg: ModelConfig, params: Params, frames, *,
+                 differentiable: bool = False):
+    """Stubbed-frontend encoder: frames (B, T, D) -> (B, T, D), through
+    bidirectional "A" blocks (the flash kernel on the card)."""
+    enc = params["encoder"]
+    b, t = frames.shape[:2]
+    x = frames + enc["pos"][None, :t, :]
+    x, _ = _run_stack(cfg, {"layers": enc["layers"]}, x,
+                      positions=_positions(b, t, x.device), context=None,
+                      pattern=("A",), differentiable=differentiable)
+    return apply_norm(cfg, enc["final_norm"], x)
+
+
+def _context_from_extra(cfg: ModelConfig, params: Params, extra, *,
+                        differentiable: bool = False):
+    if cfg.is_encdec:
+        return encode_audio(cfg, params, extra["audio"],
+                            differentiable=differentiable)
+    if cfg.vision_tokens:
+        return extra["vision"] @ params["vision_proj"]
+    return None
 
 
 def _embed(cfg: ModelConfig, params: Params, tokens):
     b, s = tokens.shape
     x = embed_tokens(cfg, params["embed"], tokens)
-    positions = torch.arange(s, device=tokens.device).expand(b, s)
     if cfg.learned_pos_embed:
         idx = torch.clamp(torch.arange(s, device=tokens.device),
                           max=cfg.learned_pos_embed - 1)
         x = x + params["embed"]["pos"][idx][None]
-    return x, positions
+    return x, _positions(b, s, tokens.device)
 
 
 def forward(cfg: ModelConfig, params: Params, tokens, extra=None, *,
             window_override: int = 0, remat: str = "none",
             differentiable: bool = False):
-    """tokens: (B, S) int -> (logits (B,S,V) f32, aux_loss scalar).
+    """tokens: (B, S) int -> (logits (B,S,V) f32, aux_loss scalar: the
+    MoE load-balance terms summed over layers, 0 without MoE).
 
+    extra: {"audio": (B, T, D)} frames for the encoder-decoder,
+    {"vision": (B, T, vision_dim)} patches for the VLM.
     differentiable: attention by the training route
     (`attention.attn_forward`), which `train.steps.lm_loss` takes; the
     default takes the flash kernel for "causal" and "bidir" on the card.
     remat "block" recomputes each repetition of the block pattern in the
     backward pass (`torch.utils.checkpoint`, non-reentrant), as the JAX
     package's `jax.checkpoint` around its scan body does; the tail layers
-    are kept, as there."""
-    check_supported(cfg)
-    if remat not in ("none", "block"):
-        raise ValueError(f"remat must be 'none' or 'block', got {remat!r}")
+    and the encoder are kept, as there."""
     x, positions = _embed(cfg, params, tokens)
-    pattern = cfg.block_pattern
-    kw = dict(positions=positions, window_override=window_override,
-              differentiable=differentiable)
-    stacks = [_unbind(pos) for pos in params.get("layers", ())]
-
-    def rep_body(xc, r):
-        for pi, t in enumerate(pattern):
-            xc, _ = _apply_block(cfg, t, _layer(stacks[pi], r), xc, **kw)
-        return xc
-
-    for r in range(_reps(params)):
-        x = checkpoint(rep_body, x, r, use_reentrant=False) \
-            if remat == "block" else rep_body(x, r)
-    for i, bp in enumerate(params.get("tail", ())):
-        x, _ = _apply_block(cfg, pattern[i], bp, x, **kw)
+    context = _context_from_extra(cfg, params, extra,
+                                  differentiable=differentiable)
+    x, aux = _run_stack(cfg, params, x, positions=positions, context=context,
+                        pattern=cfg.block_pattern,
+                        window_override=window_override, remat=remat,
+                        differentiable=differentiable)
     x = apply_norm(cfg, params["final_norm"], x)
-    return (lm_logits(cfg, params["embed"], x),
-            torch.zeros((), dtype=torch.float32, device=x.device))
+    return lm_logits(cfg, params["embed"], x), aux
 
 
 # ===========================================================================
@@ -221,59 +299,125 @@ def _cache_size(cfg, t, cache_len, window_override):
     return cache_len
 
 
-def _cache_tree(cfg: ModelConfig, params: Params, make):
-    """The cache structure: for each pattern position a stacked
-    {"kv": {"k", "v"}} (leading reps axis), for each tail layer one;
-    `make(t, lead)` builds a {"k", "v"} dict with leading dims `lead`."""
-    cache: Params = {}
+def _empty_cache(cfg: ModelConfig, params: Params, batch: int, sizes, dtype,
+                 context_len: int):
+    """The JAX cache's structure, zeros (the recurrent states at their
+    start): for each pattern position a dict stacked on (reps,), for each
+    tail layer one. A block's entries: "kv" {"k", "v"} for "A"/"L" (none
+    in an encoder-decoder without context) of `sizes(t)` slots, "kv" the
+    context's K/V for "X", "state" for "R"/"S"/"M", and "cross" the
+    context's K/V in the encoder-decoder's decoder."""
+    dev = params["final_norm"]["scale"].device
+    kvh, dh = cfg.num_kv_heads, cfg.resolved_head_dim
+    has_ctx = context_len > 0
+
+    def kv(lead, n):
+        return {k: torch.zeros((*lead, batch, n, kvh, dh), dtype=dtype,
+                               device=dev) for k in ("k", "v")}
+
+    def lead_of(tree, lead):
+        return tree_map(lambda a: a.expand(*lead, *a.shape).clone(), tree)
+
+    def block(t, bp, lead):
+        c: Params = {}
+        if t in "AL" and not (cfg.is_encdec and not has_ctx):
+            c["kv"] = kv(lead, sizes(t))
+        elif t == "X":
+            c["kv"] = kv(lead, context_len)
+        elif t == "R":
+            c["state"] = lead_of(rglru.init_rglru_state(cfg, batch, dtype,
+                                                        dev), lead)
+        elif t == "S":
+            c["state"] = lead_of(xlstm.init_slstm_state(cfg, batch, dev),
+                                 lead)
+        elif t == "M":
+            c["state"] = lead_of(xlstm.init_mlstm_state(cfg, batch, dev),
+                                 lead)
+        if "xattn" in bp and has_ctx:
+            c["cross"] = kv(lead, context_len)
+        return c
+
     pattern = cfg.block_pattern
-    if "layers" in params:
-        cache["layers"] = tuple({"kv": make(t, (_reps(params),))}
-                                for t in pattern)
-    cache["tail"] = tuple({"kv": make(pattern[i], ())}
-                          for i in range(len(params.get("tail", ()))))
+    layers = params.get("layers", ())
+    cache: Params = {}
+    if layers:
+        cache["layers"] = tuple(block(t, layers[pi], (_reps(layers),))
+                                for pi, t in enumerate(pattern))
+    cache["tail"] = tuple(block(pattern[i], bp, ())
+                          for i, bp in enumerate(params.get("tail", ())))
     return cache
+
+
+def _block_cache(cache: Params, pi, i):
+    """One layer's cache entries: views of rep i for a pattern position."""
+    if pi is None:
+        return cache["tail"][i]
+    return tree_map(lambda a: a[i], cache["layers"][pi])
+
+
+def _write(dst, src) -> None:
+    """Copy a tree of tensors into a tree of views of the same shapes."""
+    tree_map(lambda d, s: d.copy_(s), dst, src)
 
 
 def init_cache(cfg: ModelConfig, params: Params, batch: int, cache_len: int,
                dtype=torch.float32, extra=None, *, window_override: int = 0):
-    """Build an empty decode cache."""
-    check_supported(cfg)
-    kv, dh = cfg.num_kv_heads, cfg.resolved_head_dim
-    dev = params["final_norm"]["scale"].device
+    """Build an empty decode cache (cross-attention K/V precomputed from
+    `extra`)."""
+    context = _context_from_extra(cfg, params, extra)
+    cache = _empty_cache(
+        cfg, params, batch,
+        lambda t: _cache_size(cfg, t, cache_len, window_override), dtype,
+        0 if context is None else context.shape[1])
+    if context is not None:
+        for pi, i, t, bp in _blocks(cfg, params):
+            c = _block_cache(cache, pi, i)
+            if t == "X":
+                _write(c["kv"], attn.cross_kv(cfg, bp["attn"], context))
+            if "cross" in c:
+                _write(c["cross"], attn.cross_kv(cfg, bp["xattn"], context))
+    return cache
 
-    def make(t, lead):
-        size = _cache_size(cfg, t, cache_len, window_override)
-        return {n: torch.zeros((*lead, batch, size, kv, dh), dtype=dtype,
-                               device=dev) for n in ("k", "v")}
-    return _cache_tree(cfg, params, make)
 
-
-def _block_cache(cache: Params, pi, i):
-    c = cache["layers"][pi] if pi is not None else cache["tail"][i]
-    kv = c["kv"]
-    if pi is None:
-        return kv
-    return {"k": kv["k"][i], "v": kv["v"][i]}            # views of rep i
+def _block_decode(cfg, t, p, x, c, pos, window_override):
+    """One layer's decode step; `c` (views) is updated in place."""
+    h = apply_norm(cfg, p["ln"], x)
+    if t in "AL":
+        mode, win = _block_mode(cfg, t, window_override)
+        out, _ = attn.attn_decode(cfg, p["attn"], h, c["kv"], pos,
+                                  mode=mode, window=win)
+    elif t == "X":
+        out, _ = attn.attn_decode(cfg, p["attn"], h, c["kv"], pos,
+                                  mode="cross")
+    else:
+        step = {"R": rglru.rglru_decode, "S": xlstm.slstm_decode,
+                "M": xlstm.mlstm_decode}[t]
+        out, state = step(cfg, p["rec"], h, c["state"])
+        _write(c["state"], state)
+    x = x + out
+    if "cross" in c:
+        hx = apply_norm(cfg, p["ln_x"], x)
+        out, _ = attn.attn_decode(cfg, p["xattn"], hx, c["cross"], pos,
+                                  mode="cross")
+        x = x + out
+    if "mlp" in p:
+        h2 = apply_norm(cfg, p["ln2"], x)
+        out = moe.moe_forward(cfg, p["mlp"], h2)[0] if cfg.is_moe \
+            else apply_mlp(cfg, p["mlp"], h2)
+        x = x + out
+    return x
 
 
 def decode_step(cfg: ModelConfig, params: Params, cache: Params, token,
                 pos: int, *, window_override: int = 0):
     """token: (B,) int, pos: int -> (logits (B,V), cache). The cache is
     updated in place and returned."""
-    check_supported(cfg)
     x = embed_tokens(cfg, params["embed"], token[:, None])
     if cfg.learned_pos_embed:
         x = x + params["embed"]["pos"][min(pos, cfg.learned_pos_embed - 1)]
     for pi, i, t, bp in _blocks(cfg, params):
-        h = apply_norm(cfg, bp["ln"], x)
-        mode, win = _block_mode(cfg, t, window_override)
-        out, _ = attn.attn_decode(cfg, bp["attn"], h,
-                                  _block_cache(cache, pi, i), pos,
-                                  mode=mode, window=win)
-        x = x + out
-        if "mlp" in bp:
-            x = x + apply_mlp(cfg, bp["mlp"], apply_norm(cfg, bp["ln2"], x))
+        x = _block_decode(cfg, t, bp, x, _block_cache(cache, pi, i), pos,
+                          window_override)
     x = apply_norm(cfg, params["final_norm"], x)
     return lm_logits(cfg, params["embed"], x)[:, 0], cache
 
@@ -288,19 +432,18 @@ def prefill(cfg: ModelConfig, params: Params, tokens, extra=None, *,
     ``cache_len`` (default: S) sizes the full-attention KV caches so the
     subsequent decode steps have room: pass S + max_new_tokens.
     """
-    check_supported(cfg)
     b, s = tokens.shape
     full_len = max(cache_len, s)
     x, positions = _embed(cfg, params, tokens)
+    context = _context_from_extra(cfg, params, extra)
     dev = x.device
 
-    def make(t, lead):                    # a ring cache always holds win
-        size = (window_override or cfg.window) if t == "L" or \
-            window_override else full_len
-        return {n: torch.zeros((*lead, b, size, cfg.num_kv_heads,
-                                cfg.resolved_head_dim), dtype=x.dtype,
-                               device=dev) for n in ("k", "v")}
-    cache = _cache_tree(cfg, params, make)
+    def ring(t):                          # a ring cache always holds win
+        return t == "L" or bool(window_override)
+    cache = _empty_cache(
+        cfg, params, b,
+        lambda t: (window_override or cfg.window) if ring(t) else full_len,
+        x.dtype, 0 if context is None else context.shape[1])
 
     def ring_pack(k, win):
         """The last `win` positions in ring layout (slot = p % win)."""
@@ -311,12 +454,18 @@ def prefill(cfg: ModelConfig, params: Params, tokens, extra=None, *,
         return k[:, slot_pos]
 
     for pi, i, t, bp in _blocks(cfg, params):
-        x, (k, v) = _apply_block(cfg, t, bp, x, positions=positions,
-                                 window_override=window_override)
+        x, _, entries = _apply_block(cfg, t, bp, x, positions=positions,
+                                     context=context,
+                                     window_override=window_override)
         c = _block_cache(cache, pi, i)
-        for name, val in (("k", k), ("v", v)):
-            if t == "L" or window_override:
-                val = ring_pack(val, window_override or cfg.window)
-            c[name][:, :val.shape[1]] = val
+        for name, val in entries.items():
+            if name == "state":
+                _write(c["state"], val)
+            elif name in c:       # an enc-dec without context keeps no K/V
+                if name == "kv" and t in "AL" and ring(t):
+                    val = [ring_pack(a, window_override or cfg.window)
+                           for a in val]
+                for slot, a in zip(("k", "v"), val):
+                    c[name][slot][:, :a.shape[1]] = a
     x = apply_norm(cfg, params["final_norm"], x)
     return lm_logits(cfg, params["embed"], x[:, -1:, :])[:, 0], cache

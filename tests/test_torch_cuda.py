@@ -933,6 +933,55 @@ def test_gqa_flash_kernel_at_the_serving_length(cuda, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,kv,dh,causal", [
+    (4, 1500, 12, 12, 64, False),      # whisper-small's encoder
+    (4, 2048, 48, 8, 128, True)])      # grok-1's GQA
+def test_gqa_flash_kernel_at_the_families_shapes(cuda, b, s, h, kv, dh,
+                                                 causal):
+    g = _gen(s + h)
+    q = torch.randn((b, s, h, dh), generator=g, device=cuda)
+    k, v = (torch.randn((b, s, kv, dh), generator=g, device=cuda)
+            for _ in range(2))
+    before = flash_attention.KERNEL.launches
+    o = ops.gqa_flash_attention(q, k, v, causal=causal)
+    assert flash_attention.KERNEL.launches == before + 1
+    pl = ops.gqa_flash_attention(q, k, v, causal=causal, use_kernel=False)
+    assert (o - pl).abs().max().item() < 2e-5
+
+
+@pytest.mark.cuda
+def test_moe_layer_on_the_card_matches_the_cpu(cuda):
+    """One MoE layer (kimi-k2's reduced config widened to 16 experts, top
+    8) on the card against its CPU run on the same weights: the same
+    expert ids, positions and keep mask, the output within rtol 1e-5,
+    atol 1e-5, the aux terms within 1e-6."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.layers import init_leaves
+    cfg = dataclasses.replace(get_config("kimi-k2-1t-a32b").reduced(),
+                              num_experts=16, experts_per_token=8)
+    p = init_leaves(moe.moe_shapes(cfg), torch.Generator().manual_seed(0),
+                    torch.float32)
+    x = torch.randn((2, 64, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(1))
+    x[0, 3] = 0.0                      # a tie over every expert
+    pc = {k: v.to(cuda) for k, v in p.items()}
+    out, aux = moe.apply_moe(cfg, p, x)
+    got, gaux = moe.apply_moe(cfg, pc, x.to(cuda))
+    torch.testing.assert_close(got.cpu(), out, rtol=1e-5, atol=1e-5)
+    for key in aux:
+        assert abs(gaux[key].item() - aux[key].item()) <= 1e-6, key
+    _, _, ids = moe.route(cfg, p, x.reshape(-1, cfg.d_model))
+    _, _, gids = moe.route(cfg, pc, x.to(cuda).reshape(-1, cfg.d_model))
+    assert torch.equal(gids.cpu(), ids)
+    assert ids[3].tolist() == list(range(8))
+    pos = moe._position_in_expert(ids.reshape(-1))
+    assert torch.equal(moe._position_in_expert(gids.reshape(-1)).cpu(), pos)
+
+
+@pytest.mark.cuda
 def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     q = torch.zeros((1, 8, 1, 320), device=cuda)
     with pytest.raises(ValueError, match="head dim 320"):
