@@ -130,9 +130,32 @@
    per model the layers run, parameters, prefill s, decode tokens/s,
    peak memory, flash's device ms in a profiled prefill, three profiled
    decode steps and grok's per-layer MoE dropped_frac.
-6. Prints {"phase": "seconds", ...}, the wall seconds of each section
+6. The continuous service (`service_path`, last, since it holds cuDNN
+   to deterministic algorithms): `run_service_federation("mnist",
+   periods=4, reselect_every=4)` on the card with churn
+   "1:leave:3,1:leave:8,2:join:3", gossip budgets
+   "4,4,2,4,1,4,3,4,4,2" and a fault plan of every kind (SERVICE,
+   SERVICE_FAULTS), counts set to 0 just before and read just after: the
+   LSH, one-shot selection and one-shot exchange kernels launch, no
+   other. The same plan with a crash at period 2: the newest snapshot
+   truncated, resumed (one fallback, a second crash at 2), resumed to
+   the end; state, rounds and ledger payloads equal the uninterrupted
+   run's bit for bit. Periods 0-1 on the CPU: every global round's ids
+   (all ranks, masked ones included) and valid masks equal, accuracy
+   within 0.02 per round. `select_phase(active=, score_scale=)` on the
+   final state through the tiled and the grouped ANN kernels, each
+   launched once, ids and masks equal to the CPU's plain versions.
+   `serve_personalized` from the checkpoint (256 requests): logits
+   within 1e-5 of a direct `apply_client_model` on the card. Prints per
+   period s, active_frac, acc and the fault counters; the server's
+   requests/s, p50 and served_acc. The kernel checks of 2 also hold the
+   selection kernels with -inf score columns (departed clients: one-shot
+   at M = 10, 1,024 with N = 200 and 46,489; tiled at 10 and 65,536;
+   grouped ANN at 10 and 65,536 clustered; ids compared on every rank)
+   and both exchange kernels on rows with N-1 of N and all ranks masked.
+7. Prints {"phase": "seconds", ...}, the wall seconds of each section
    (build, kernel checks, main paths, profiles, attack, baselines,
-   serve, families, train), then {"kernels": [...]} for every kernel of the paths driven (the
+   serve, families, train, service), then {"kernels": [...]} for every kernel of the paths driven (the
    per-row ANN kernel, which no path takes since the route took the
    grouped one, is checked in 2 only), then, last,
    {"ok": true, "device": {...}}.
@@ -153,6 +176,7 @@ kernel's test bound).
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import re
@@ -378,16 +402,29 @@ def check_lsh(torch, m, p, bits, gen):
                 launches=lsh_projection.KERNEL.launches - n0)
 
 
-def selection_inputs(torch, m, bits, gen, ties):
+def selection_inputs(torch, m, bits, gen, ties, departed=0.0):
     """Random packed codes (M, W) int32 and Eq. 7-like scores on a
-    4-value grid (ties across columns), or all-zero scores (round 0)."""
+    4-value grid (ties across columns), or all-zero scores (round 0).
+    `departed` > 0: that share of the scores (at least one) at -inf, the
+    service's departed clients (`select_partners(active=)`)."""
     w = bits // 32
     codes = torch.randint(-2 ** 31, 2 ** 31 - 1, (m, w), generator=gen,
                           device="cuda", dtype=torch.int64).to(torch.int32)
     grid = torch.tensor([0.0, 0.25, 0.5, 1.0], device="cuda")
     scores = (torch.zeros(m, device="cuda") if ties else
               grid[torch.randint(0, 4, (m,), generator=gen, device="cuda")])
-    return codes, scores
+    return codes, depart(torch, scores, departed, gen)
+
+
+def depart(torch, scores, share, gen):
+    """`scores` with max(1, round(share * M)) random columns at -inf
+    (none when share is 0)."""
+    if share <= 0:
+        return scores
+    m = scores.shape[0]
+    k = max(1, round(share * m))
+    gone = torch.randperm(m, generator=gen, device="cuda")[:k]
+    return scores.index_fill(0, gone, -math.inf)
 
 
 def selection_bound(m, w, n):
@@ -450,11 +487,12 @@ def selection_plain(ref, codes, scores, lut, n):
     return lambda: ref.fused_select_ref(codes, scores, lut, num_neighbors=n)
 
 
-def check_selection(torch, m, bits, n, gen, ties=False):
+def check_selection(torch, m, bits, n, gen, ties=False, departed=0.0):
     """The one-shot kernel against its plain version (`selection_plain`),
-    launched twice (bit-identical, else it raises), with its plan."""
+    launched twice (bit-identical, else it raises), with its plan; ids
+    compared on every rank, the masked ones too (`departed`)."""
     from repro_torch.kernels import ref, selection
-    codes, scores = selection_inputs(torch, m, bits, gen, ties)
+    codes, scores = selection_inputs(torch, m, bits, gen, ties, departed)
     call = lambda: selection.fused_select(          # noqa: E731
         codes, scores, bits=bits, gamma=1.0, num_neighbors=n)
     ki, kw = got = call()
@@ -476,7 +514,7 @@ def check_selection(torch, m, bits, n, gen, ties=False):
                 launches=selection.KERNEL.launches - n0)
 
 
-def check_selection_tiled(torch, m, bits, n, gen, ties=False):
+def check_selection_tiled(torch, m, bits, n, gen, ties=False, departed=0.0):
     """The column-tiled kernel against `fused_select_tiled_ref` (4096 x
     4096 tiles past M = 8192, so the plain version's temporaries stay at
     a few GB), launched twice (bit-identical, else it raises), with its
@@ -484,7 +522,7 @@ def check_selection_tiled(torch, m, bits, n, gen, ties=False):
     device time is recorded beside it (`oneshot_ms`)."""
     from repro_torch.kernels import ref, selection
     from repro_torch.kernels.build import MAX_SHARED_BYTES
-    codes, scores = selection_inputs(torch, m, bits, gen, ties)
+    codes, scores = selection_inputs(torch, m, bits, gen, ties, departed)
     blocks = (dict(block_m=4096, block_k=4096) if m > 8192 else {})
     lut = ref.selection_lut(bits // 32, bits, 1.0, device=codes.device)
     call = lambda: selection.fused_select_tiled(    # noqa: E731
@@ -522,13 +560,22 @@ def check_selection_tiled(torch, m, bits, n, gen, ties=False):
                 launches=selection.TILED_KERNEL.launches - n0)
 
 
-def exchange_inputs(torch, m, n, r, c, gen, all_selected):
+def exchange_inputs(torch, m, n, r, c, gen, all_selected, masked=False):
+    """Logits, labels and a selection mask: all selected, a random 70 %,
+    or `masked` (the service's rows under churn): every third row all
+    masked (no valid neighbour, has_target False), every third only rank
+    0 selected (N-1 of N masked), the rest a random 70 %."""
     own = torch.randn((m, r, c), generator=gen, device="cuda") * 3
     nb = torch.randn((m, n, r, c), generator=gen, device="cuda") * 3
     y = torch.randint(0, c, (m, r), generator=gen, device="cuda")
     sel = (torch.ones((m, n), dtype=torch.bool, device="cuda")
            if all_selected else
            torch.rand((m, n), generator=gen, device="cuda") < 0.7)
+    if masked:
+        rows = torch.arange(m, device="cuda") % 3
+        sel[rows == 0] = False
+        sel[rows == 1] = False
+        sel[rows == 1, 0] = True
     return own, nb, y, sel
 
 
@@ -550,12 +597,13 @@ def same_bits(torch, a, b) -> bool:
                for x, z in zip(a, b))
 
 
-def check_exchange(torch, m, n, r, c, gen, all_selected=False):
+def check_exchange(torch, m, n, r, c, gen, all_selected=False, masked=False):
     """The one-shot kernel against `all_in_one_exchange_ref`, launched
     twice (bit-identical, else it raises), with its launch plan
     (`exchange.oneshot_plan`) and the plain version's peak allocation."""
     from repro_torch.kernels import exchange, ref
-    own, nb, y, sel = exchange_inputs(torch, m, n, r, c, gen, all_selected)
+    own, nb, y, sel = exchange_inputs(torch, m, n, r, c, gen, all_selected,
+                                      masked)
     got = exchange.fused_exchange(own, nb, y, sel)
     kl, kv, kt, kh = got
     torch.cuda.synchronize()
@@ -585,12 +633,14 @@ def check_exchange(torch, m, n, r, c, gen, all_selected=False):
                 launches=exchange.KERNEL.launches - n0)
 
 
-def check_exchange_streamed(torch, m, n, r, c, gen, all_selected=False):
+def check_exchange_streamed(torch, m, n, r, c, gen, all_selected=False,
+                            masked=False):
     """The streamed kernel against `streamed_exchange_ref` and
     `all_in_one_exchange_ref`; the one-shot kernel's device time at the
     same inputs is recorded beside it (`oneshot_ms`)."""
     from repro_torch.kernels import exchange, ref
-    own, nb, y, sel = exchange_inputs(torch, m, n, r, c, gen, all_selected)
+    own, nb, y, sel = exchange_inputs(torch, m, n, r, c, gen, all_selected,
+                                      masked)
     got = exchange.fused_exchange_streamed(own, nb, y, sel)
     kl, kv, kt, kh = got
     err = 0.0
@@ -642,16 +692,19 @@ def clustered_codes(torch, m, bits, gen, per_cluster=32, flip=0.02):
     return codes, scores
 
 
-def ann_inputs(torch, m, bits, n, gen, kind, prefix_bits=10, probes=8):
+def ann_inputs(torch, m, bits, n, gen, kind, prefix_bits=10, probes=8,
+               departed=0.0):
     """Codes, scores and the `ann_candidates` of one selection (seed 0):
     kind "random" (gridded scores), "ties" (all scores 0, round 0) or
-    "clustered"."""
+    "clustered"; `departed` as in `selection_inputs`."""
     from repro_torch.core import ann
     if kind == "clustered":
         codes, scores = clustered_codes(torch, m, bits, gen)
+        scores = depart(torch, scores, departed, gen)
     else:
         codes, scores = selection_inputs(torch, m, bits, gen,
-                                         ties=kind == "ties")
+                                         ties=kind == "ties",
+                                         departed=departed)
     cand = ann.ann_candidates(codes, scores, seed=0, prefix_bits=prefix_bits,
                               probes=probes, num_neighbors=min(n, m - 1))
     return codes, scores, cand
@@ -732,7 +785,7 @@ def ann_grouped_bound(cand, codes, n):
 
 
 def check_selection_ann_grouped(torch, m, bits, n, gen, kind="random",
-                                prefix_bits=10, probes=8):
+                                prefix_bits=10, probes=8, departed=0.0):
     """The grouped ANN kernel on `bucket_candidates` against its plain
     version (`ann_select_grouped_ref`) and the per-row kernel on
     `ann_candidates` of the same codes, launched twice (bit-identical,
@@ -742,7 +795,7 @@ def check_selection_ann_grouped(torch, m, bits, n, gen, kind="random",
     from repro_torch.core import ann
     from repro_torch.kernels import ref, selection
     codes, scores, rows = ann_inputs(torch, m, bits, n, gen, kind,
-                                     prefix_bits, probes)
+                                     prefix_bits, probes, departed)
     cand = ann.bucket_candidates(codes, scores, seed=0,
                                  prefix_bits=prefix_bits, probes=probes,
                                  num_neighbors=min(n, m - 1))
@@ -1834,6 +1887,199 @@ def train_path(torch, kernels):
           "step_profile": prof})
 
 
+SERVICE = dict(reselect_every=4, churn="1:leave:3,1:leave:8,2:join:3",
+               gossip_counts="4,4,2,4,1,4,3,4,4,2")
+SERVICE_FAULTS = ("seed=7,drop=0.1,delay=0.1,duplicate=0.1,corrupt=0.1,"
+                  "straggle=0.2,publish_fail=0.3,fetch_fail=0.3,fork=1")
+FAULT_KEYS = ("fault_stragglers", "fault_dropped", "fault_delayed",
+              "fault_corrupt", "fault_duplicates", "fault_publish_retries",
+              "fault_fetch_retries", "degraded_round")
+
+
+def same_tree(torch, a, b) -> bool:
+    """Two state trees equal leaf for leaf, bit for bit."""
+    from repro_torch.tree import tree_leaves
+    return all(torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def no_seconds(hist):
+    return [{k: v for k, v in h.items() if k != "seconds"} for h in hist]
+
+
+def service_routes(torch, kernels, state):
+    """`select_phase(active=, score_scale=)` on the service's final state
+    through the tiled kernel and the grouped ANN kernel (launch counts set
+    to 0 just before each and read just after), held against the same
+    call through the plain versions on the CPU (the tiled one by
+    backend "oracle", ANN by its own route): ids on every rank and
+    masks equal (ANN: ids 0 where the weight is not finite, as
+    `ann_select_ref`)."""
+    from repro_torch.core.protocol import select_phase
+    from repro_torch.service import staleness_discount
+    from repro_torch.tree import tree_map
+    cpu = tree_map(lambda t: t.cpu() if isinstance(t, torch.Tensor) else t,
+                   state)
+    # client 8 is still departed; client 5 leaves as well, so more rows
+    # carry masked ranks
+    active = state.active.clone()
+    active[5] = False
+    out = {}
+    for label, kw, name in (("tiled", dict(selection_tiling="tiled"),
+                             "selection_tiled"),
+                            ("ann", dict(ann_prefix_bits=10, ann_probes=8),
+                             "selection_ann_grouped")):
+        fed = mnist_fed("ann" if label == "ann" else "kernel", **kw)
+        for k in kernels.values():
+            k.launches = 0
+        got = select_phase(state.fed, fed, active=active,
+                           score_scale=staleness_discount(state.code_age,
+                                                          0.5))
+        torch.cuda.synchronize()
+        launched = kernels[name].launches
+        plain = fed if label == "ann" else dataclasses.replace(
+            fed, selection_backend="oracle")
+        want = select_phase(cpu.fed, plain, active=active.cpu(),
+                            score_scale=staleness_discount(cpu.code_age,
+                                                           0.5))
+        same = (torch.equal(got.ids.cpu(), want.ids)
+                and torch.equal(got.sel_mask.cpu(), want.sel_mask))
+        out[label] = {"launches": launched, "equal_to_plain": same,
+                      "masked_ranks": int((~want.sel_mask).sum())}
+        if launched != 1 or not same:
+            raise AssertionError(f"service route {label}: {launched} "
+                                 f"launches of {name}, equal {same}")
+    return out
+
+
+def service_path(torch, kernels):
+    """The continuous service on the card at the paper's mnist
+    configuration (10 clients, mnist_cnn at full width): 4 periods of 4
+    rounds, churn, heterogeneous gossip budgets and a fault plan
+    (SERVICE, SERVICE_FAULTS), launch counts set to 0 just before the
+    uninterrupted run and read just after (the LSH, one-shot selection
+    and one-shot exchange kernels and no other). Then the same plan with
+    a crash at period 2: the newest snapshot truncated after the first
+    crash, resumed (falls back a period, crashes again at 2), resumed
+    again to the end; final state, rounds and ledger payloads equal the
+    uninterrupted run's bit for bit. Periods 0-1 on the CPU: every global
+    round's selection (ids on every rank, masks) equal, accuracy within
+    0.02 per round. The tiled and ANN routes through
+    `select_phase(active=)` (`service_routes`). `serve_personalized` from
+    the uninterrupted run's checkpoint: logits equal a direct
+    `apply_client_model` on the card within 1e-5. Returns the uninterrupted
+    run's launches."""
+    import shutil
+    import warnings
+
+    from repro_torch.launch.fed import run_service_federation
+    from repro_torch.launch.serve import serve_personalized
+    from repro_torch.models.client import apply_client_model, client_template
+    from repro_torch.configs.paper_models import mnist_cnn
+    from repro_torch.service import CrashInjected
+    work = ROOT / "build" / "chip_smoke_service"
+    shutil.rmtree(work, ignore_errors=True)
+    plain_dir, crash_dir = str(work / "uninterrupted"), str(work / "crash")
+
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    st_u, chain_u, hist_u = run_service_federation(
+        "mnist", periods=4, ckpt_dir=plain_dir, faults=SERVICE_FAULTS,
+        device="cuda", log=None, **SERVICE)
+    wall_u = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    path = ("lsh_projection", "selection", "exchange")
+    expect_launches(launches, path, set(kernels) - set(path), "service")
+    for p in range(4):
+        rounds = hist_u[4 * p:4 * p + 4]
+        last = rounds[-1]
+        emit({"phase": "service", "period": p,
+              "s": sum(h["seconds"] for h in rounds),
+              "round_s": [h["seconds"] for h in rounds],
+              "active_frac": last["active_frac"],
+              "participation_frac": [h["participation_frac"]
+                                     for h in rounds],
+              "acc": last["acc"], "mean_loss": last["mean_loss"],
+              **{k: last[k] for k in FAULT_KEYS}})
+
+    crashes, fallbacks, resume = [], 0, False
+    while True:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            try:
+                st_k, chain_k, hist_k = run_service_federation(
+                    "mnist", periods=4, ckpt_dir=crash_dir,
+                    faults=SERVICE_FAULTS + ",crash=2", resume=resume,
+                    device="cuda", log=None, **SERVICE)
+                crashed = False
+            except CrashInjected as e:
+                crashes.append(e.period)
+                crashed = True
+        fallbacks += sum("falling back" in str(w.message) for w in caught)
+        if not crashed:
+            break
+        if len(crashes) > 2:
+            raise AssertionError(f"the service crashed at {crashes}")
+        if len(crashes) == 1:          # a crash mid-write of the newest
+            newest = sorted(Path(crash_dir).glob("step_*.npz"))[-1]
+            blob = newest.read_bytes()
+            newest.write_bytes(blob[:len(blob) // 3])
+        resume = True
+    same = (same_tree(torch, st_k, st_u)
+            and no_seconds(hist_k) == no_seconds(hist_u[8:])
+            and [b.payload for b in chain_k.blocks]
+            == [b.payload for b in chain_u.blocks])
+    emit({"phase": "service_resume", "crashes": crashes,
+          "snapshot_fallbacks": fallbacks, "bitwise_equal": same,
+          "chain_verified": chain_k.verify_chain(),
+          "fork_view": (Path(crash_dir) / "chain.fork0.json").exists()})
+    if crashes != [2, 2] or fallbacks != 1 or not same:
+        raise AssertionError("the resumed service differs from the "
+                             "uninterrupted run or did not crash, fall "
+                             "back and resume as planned")
+
+    t0 = time.perf_counter()
+    _, _, hist_c = run_service_federation(
+        "mnist", periods=2, faults=SERVICE_FAULTS, device="cpu", log=None,
+        **SERVICE)
+    cpu_s = time.perf_counter() - t0
+    for a, b in zip(hist_u, hist_c):
+        if a["round"] % 4 == 0 and not (
+                a["neighbor_ids"] == b["neighbor_ids"]
+                and a["valid_mask"] == b["valid_mask"]):
+            raise AssertionError(f"service round {a['round']}: the card's "
+                                 "selection differs from the CPU's")
+        if not abs(a["acc"] - b["acc"]) <= 0.02:
+            raise AssertionError(f"service round {a['round']}: accuracy "
+                                 f"{a['acc']} on the card, {b['acc']} on "
+                                 "the CPU")
+    routes = service_routes(torch, kernels, st_u)
+
+    res = serve_personalized("mnist", ckpt_dir=plain_dir, requests=256,
+                             device="cuda", log=None)
+    from repro_torch.data import DATASETS
+    x = torch.from_numpy(DATASETS["mnist"](seed=0).stacked()["x_test"])
+    template = client_template(mnist_cnn())
+    with torch.no_grad():
+        direct = torch.stack([apply_client_model(
+            template, {k: v[c] for k, v in st_u.fed.params.items()},
+            x[c, t][None].cuda())[0]
+            for c, t in zip(res["client_ids"], res["example_ids"])]).cpu()
+    served = torch.from_numpy(res["logits"])
+    err = (served - direct).abs().max().item()
+    emit({"phase": "service_serve", "requests": res["requests"],
+          "batches": res["batches"], "requests_per_s": res["requests_per_s"],
+          "p50_latency_s": res["p50_latency_s"],
+          "served_acc": res["served_acc"], "num_models": res["num_models"],
+          "max_abs_err_vs_direct": err})
+    torch.testing.assert_close(served, direct, rtol=1e-5, atol=1e-5)
+    emit({"phase": "service_summary", "card_run_s": wall_u,
+          "cpu_two_periods_s": cpu_s, "routes": routes,
+          "launches": {k: v for k, v in launches.items() if v}})
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1988,6 +2234,35 @@ def main() -> int:
             (4, 2048, 2048, 128, True, torch.float32,      # grok-1's GQA
              {"heads": (48, 8)}))
     ]
+    # the service's churn: -inf score columns (departed clients) for the
+    # selection kernels, at the main shape and the largest M each is
+    # checked at; rows with N-1 of N and all ranks masked for both
+    # exchange kernels
+    checks += [
+        ("selection", dict(m=m, bits=256, n=n, departed=d), False,
+         lambda m=m, n=n, d=d: check_selection(torch, m, 256, n, gen,
+                                               departed=d))
+        for m, n, d in ((10, 9, 0.3), (1024, 200, 0.9), (46_489, 16, 0.3))
+    ] + [
+        ("selection_tiled", dict(m=m, bits=256, n=n, departed=0.3), False,
+         lambda m=m, n=n: check_selection_tiled(torch, m, 256, n, gen,
+                                                departed=0.3))
+        for m, n in ((10, 9), (65_536, 16))
+    ] + [
+        ("selection_ann_grouped", dict(m=m, bits=256, n=n, kind=kind,
+                                       prefix_bits=10, departed=0.3), False,
+         lambda m=m, n=n, kind=kind: check_selection_ann_grouped(
+             torch, m, 256, n, gen, kind=kind, departed=0.3))
+        for m, n, kind in ((10, 9, "random"), (65_536, 16, "clustered"))
+    ] + [
+        (name, dict(m=m, n=n, r=r, c=c, masked=True), False,
+         lambda fn=fn, m=m, n=n, r=r, c=c: fn(torch, m, n, r, c, gen,
+                                              masked=True))
+        for name, fn, big in (
+            ("exchange", check_exchange, (4096, 16, 64, 10)),
+            ("exchange_streamed", check_exchange_streamed, (8, 8, 32, 2048)))
+        for m, n, r, c in ((10, 9, 64, 10), big)
+    ]
     for name, shape, is_main, run in checks:
         res = run()
         emit({"phase": "kernel_check", "kernel": name, "shape": shape,
@@ -2063,9 +2338,15 @@ def main() -> int:
     # checkpoints; no kernel lies on this path
     train_path(torch, kernels)
     lap("train")
+
+    # 7. the continuous service: churn, gossip budgets, faults, a crash
+    # and a resume, then personalized serving (last: it holds cuDNN to
+    # deterministic algorithms for the rest of the process)
+    service_path(torch, kernels)
+    lap("service")
     emit({"phase": "seconds", **laps})
 
-    # 7. every ported kernel
+    # 8. every ported kernel
     meta = {
         "lsh_projection": ("src/repro_torch/kernels/csrc/lsh_projection.cu",
                            "src/repro/kernels/lsh_projection.py:134"),

@@ -3,7 +3,9 @@ Counterpart of `repro/core/chain.py`.
 
 1. Host ledger: an append-only hash-chained block list with SHA-256
    commitments over the canonical ranking bytes (byte-identical to the
-   JAX package's, so both packages commit to the same hex strings).
+   JAX package's, so both packages commit to the same hex strings),
+   persisted as canonical JSON (`save_chain` / `load_chain`) that either
+   package loads and verifies.
 2. In-round commitments (`fnv1a_commit`): FNV-1a over the 4 bytes of
    each ranking integer, with uint32 wraparound, on tensors, so the round
    verifies reveals without a host round trip.
@@ -12,6 +14,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
@@ -103,6 +106,44 @@ class Blockchain:
                 return False
         return True
 
+    def head_round(self) -> int:
+        """Highest round index on chain; -1 for a genesis-only ledger.
+        Resume compares it with the checkpoint's round counter to catch
+        a silently rolled-back ledger (`service/transport.py`)."""
+        for b in reversed(self.blocks):
+            r = b.payload.get("round")
+            if r is not None:
+                return int(r)
+        return -1
+
+    def round_block(self, round_idx: int) -> Optional[Block]:
+        for b in reversed(self.blocks):
+            if b.payload.get("round") == round_idx:
+                return b
+        return None
+
+    def to_json(self) -> str:
+        """The whole ledger as canonical JSON (sorted keys), the JAX
+        package's layout. The stored hashes are the original ones:
+        `verify_chain` recomputes them over the loaded payloads, so a
+        tampered file fails verification after loading."""
+        return json.dumps([{
+            "index": b.index, "prev_hash": b.prev_hash,
+            "payload": b.payload, "timestamp": b.timestamp,
+            "hash": b.hash,
+        } for b in self.blocks], sort_keys=True)
+
+    @classmethod
+    def from_json(cls, text: str) -> "Blockchain":
+        chain = cls.__new__(cls)
+        chain.blocks = [
+            Block(d["index"], d["prev_hash"], d["payload"],
+                  timestamp=d["timestamp"], hash=d["hash"])
+            for d in json.loads(text)]
+        if not chain.blocks:
+            raise ValueError("serialized chain has no genesis block")
+        return chain
+
 
 def verify_reveal(commitment_hex: str, revealed_ranking, salt: int = 0) -> bool:
     """Eq. (10): recompute the hash of the revealed ranking."""
@@ -115,3 +156,20 @@ def lsh_code_hex(code) -> str:
     if isinstance(code, torch.Tensor):
         code = code.detach().cpu().numpy()
     return np.asarray(code).astype(np.int32).view(np.uint32).tobytes().hex()
+
+
+def save_chain(path: str, chain: Blockchain) -> str:
+    """Persist the ledger atomically (a temporary file, then a rename:
+    a crash mid-write never truncates the previous good file)."""
+    tmp = path + ".tmp"
+    with open(tmp, "w", encoding="utf-8") as fh:
+        fh.write(chain.to_json())
+    os.replace(tmp, path)
+    return path
+
+
+def load_chain(path: str) -> Blockchain:
+    """Restore a persisted ledger. Integrity is the caller's call to
+    `verify_chain()`; the service refuses to resume without it."""
+    with open(path, "r", encoding="utf-8") as fh:
+        return Blockchain.from_json(fh.read())

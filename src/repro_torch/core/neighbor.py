@@ -58,15 +58,33 @@ def select_neighbors(weights: torch.Tensor, num_neighbors: int):
 
 def select_partners(codes: torch.Tensor, scores: torch.Tensor, fed, *,
                     generator: torch.Generator = None, backend: str = None,
-                    tiling: str = None, seed: int = 0):
+                    tiling: str = None, seed: int = 0,
+                    active: torch.Tensor = None):
     """Eq. 6-8 + top-N: codes (M, W) int32, scores (M,) f32 -> (ids
     (M, N) int32, sel_mask (M, N) bool). `generator` is consumed only by
     the random ablation (use_lsh=False, use_rank=False). `backend` /
     `tiling` override fed.selection_backend / fed.selection_tiling.
     `seed` (the round index, from `protocol.select_phase`) seeds the ANN
-    bucket permutation; the exact paths ignore it."""
+    bucket permutation; the exact paths ignore it.
+
+    `active` (M,) bool excludes departed clients (the service's churn as
+    masking): their score column is set to -inf before any dispatch, and
+    -inf survives the Eq. 8 product on every path (times a positive table
+    entry), so `isfinite(top_w)` masks them out and no kernel needs a
+    mask argument. The ids under the mask are the plain versions' (the
+    exact paths: the row and the departed clients in ascending id; ANN:
+    0). Requires use_rank=True: without Eq. 8's score column there is
+    nothing to carry the exclusion."""
     m = codes.shape[0]
     n = min(fed.num_neighbors, m - 1)
+    if active is not None:
+        if not fed.use_rank:
+            raise ValueError(
+                "select_partners(active=...) requires use_rank=True: "
+                "membership exclusion rides the Eq. 8 score column "
+                "(DESIGN.md §13)")
+        scores = torch.where(active.to(scores.device), scores,
+                             torch.tensor(-torch.inf, device=scores.device))
     if not fed.use_lsh and not fed.use_rank:
         w = selection_weights(scores, torch.zeros((m, m), device=codes.device),
                               fed.gamma, use_lsh=False, use_rank=False,

@@ -130,11 +130,21 @@ def init_state(init_fn: Callable[[torch.Generator], Dict[str, torch.Tensor]],
 # phases
 # ---------------------------------------------------------------------------
 def select_phase(state: FedState, fed: FedConfig, *,
-                 generator: torch.Generator = None) -> SelectResult:
+                 generator: torch.Generator = None,
+                 active: torch.Tensor = None,
+                 score_scale: torch.Tensor = None) -> SelectResult:
     """Steps 1-3: §3.6 reveal verification -> Eq. 7 ranking scores ->
     fused Eq. 6-8 top-N partner selection. `generator` is consumed only
     by the random-selection ablation (use_lsh=False, use_rank=False);
-    the round index seeds the ANN bucket permutation."""
+    the round index seeds the ANN bucket permutation.
+
+    The service threads two masks: `active` (M,) bool drops departed
+    clients from both sides of the round (their rankings stop counting
+    as Eq. 7 evidence, reporter_mask &= active, and
+    `neighbor.select_partners` sets their score column to -inf);
+    `score_scale` (M,) f32 multiplies the Eq. 7 scores (the staleness
+    discount of re-joiners whose codes are periods old). Both default to
+    no-ops."""
     m = fed.num_clients
     if fed.rank_verification:
         reporter_mask = verify.verify_rankings_fnv(state.rankings,
@@ -142,12 +152,16 @@ def select_phase(state: FedState, fed: FedConfig, *,
     else:
         reporter_mask = torch.ones((m,), dtype=torch.bool,
                                    device=state.codes.device)
+    if active is not None:
+        reporter_mask = reporter_mask & active.to(reporter_mask.device)
     scores = ranking.ranking_scores(
         torch.where(reporter_mask[:, None], state.rankings, -1),
         m, fed.top_k, dedupe=fed.dedupe_rankings)
+    if score_scale is not None:
+        scores = scores * score_scale.to(scores.device)
     ids, sel_mask = neighbor.select_partners(state.codes, scores, fed,
                                              generator=generator,
-                                             seed=state.round)
+                                             seed=state.round, active=active)
     return SelectResult(ids, sel_mask, scores, reporter_mask)
 
 
@@ -189,22 +203,42 @@ def exchange_phase(apply_fn: Callable, fed: FedConfig, params,
 def update_phase(apply_fn: Callable, optimizer: Optimizer, fed: FedConfig,
                  params, opt_state, data: Dict[str, torch.Tensor],
                  exch: ExchangeResult, generator: torch.Generator = None,
-                 batch_idx: torch.Tensor = None):
+                 batch_idx: torch.Tensor = None,
+                 participate: torch.Tensor = None):
     """Step 6b: `local_steps` minibatch Adam steps per client on the
     combined objective (Alg. 1 l.19), distilling toward the exchange's
     target (`batched_local_update`). `batch_idx` (M, local_steps, mb)
     int fixes the minibatch indices (the parity tests pass the JAX
     package's); by default they are drawn from `generator`. Returns
     (params, opt_state, train_metrics) with the last step's losses per
-    client."""
+    client.
+
+    `participate` (M,) bool freezes non-participants (the service's
+    departed clients and spent gossip budgets): their params and
+    optimizer state come back bitwise unchanged. As in the JAX package,
+    every client's update is still computed and then masked out, so the
+    loss metrics keep their meaning and the minibatch draws (one call
+    for all M clients) do not depend on who participates; `None` (all
+    participate) is the plain round."""
     m = fed.num_clients
     data_per = {k: data[k] for k in ("x_train", "y_train", "x_ref")}
     if fed.ref_mode == "public":        # distil on the shared set
         data_per["x_ref"] = data["x_ref"][0][None].expand(
             m, *data["x_ref"].shape[1:])
-    return batched_local_update(apply_fn, optimizer, fed, params, opt_state,
-                                data_per, exch.target_ref, exch.has_target,
-                                generator=generator, batch_idx=batch_idx)
+    new_params, new_opt, metrics = batched_local_update(
+        apply_fn, optimizer, fed, params, opt_state, data_per,
+        exch.target_ref, exch.has_target, generator=generator,
+        batch_idx=batch_idx)
+    if participate is not None:
+        part = participate.to(exch.has_target.device)
+
+        def keep(new, old):
+            return torch.where(part.reshape((m,) + (1,) * (new.ndim - 1)),
+                               new, old)
+
+        new_params = tree_map(keep, new_params, params)
+        new_opt = tree_map(keep, new_opt, opt_state)
+    return new_params, new_opt, metrics
 
 
 def announce_phase(fed: FedConfig, params, sel: SelectResult,

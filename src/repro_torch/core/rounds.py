@@ -4,10 +4,13 @@ gossip epochs and the baselines. Counterpart of `repro/core/rounds.py`.
 A federation method is a `RoundProgram`: `global_round(state, data) ->
 (state, cache, metrics)` and `gossip_round(state, data, cache) -> same`.
 `Schedule(reselect_every=G)` runs one global round then G-1 gossip
-epochs per reselection period; `run_rounds` drives the rounds eagerly
-(PyTorch has no whole-segment compile to amortise) and calls
-`on_reselect(start_round, state)` once per period, which is where the
-host `Blockchain` publishes. `make_program` builds every method by name.
+epochs per reselection period. `make_segment_fn` is one period as a host
+loop (PyTorch has no whole-segment compile to amortise), `extract_history`
+turns its per-round metrics into plain Python, and `run_rounds` drives
+the periods and calls `on_reselect(start_round, state)` once per period,
+which is where the host `Blockchain` publishes; the continuous service
+(`repro_torch.service.driver`) drives the same segments. `make_program`
+builds every method by name.
 
 This module imports no `repro_torch.core` sibling at module level:
 `core.protocol` and `core.baselines` import `RoundProgram` from here, and
@@ -106,19 +109,85 @@ def host_metrics(metrics: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
+def _scalars(metrics: Dict[str, Any]) -> Dict[str, Any]:
+    """The scalar entries of one round's metrics as Python numbers."""
+    out = {}
+    for k, v in metrics.items():
+        if isinstance(v, torch.Tensor):
+            if v.ndim == 0:
+                out[k] = v.item()
+        elif isinstance(v, (int, float)):
+            out[k] = v
+    return out
+
+
+def make_segment_fn(program: RoundProgram, length: int, *,
+                    eval_fn: Optional[Callable] = None,
+                    metrics_tap: Optional[Callable] = None) -> Callable:
+    """One reselection period of `length` rounds: the global round, then
+    length-1 gossip epochs against its cache. Returns
+    segment_fn(state, data, r0=0) -> (state, metrics), `metrics` a list
+    of one dict per round: the round's metrics, `eval_fn(state, data)`'s
+    outputs and "seconds", the wall time of the round's body (the device
+    synchronised before the clock is read; evaluation excluded), which
+    runs in a profiler span named "wpfed.round.<r0 + i>".
+    `metrics_tap(scalars)` (a host function) receives each round's scalar
+    metrics as Python numbers as soon as the round ends: the service's
+    live progress stream, the counterpart of the JAX segment's ordered
+    io_callback."""
+    if length < 1:
+        raise ValueError(f"segment length must be >= 1, got {length}")
+    if length > 1 and program.gossip_round is None:
+        raise ValueError(f"program {program.name!r} has no gossip_round; "
+                         "only Schedule(reselect_every=1) can run it")
+
+    def seg_fn(state, data, r0: int = 0):
+        cache, out = None, []
+        for k in range(length):
+            t0 = time.perf_counter()
+            with record_function(f"wpfed.round.{r0 + k}"):
+                if k == 0:
+                    state, cache, m = program.global_round(state, data)
+                else:
+                    state, cache, m = program.gossip_round(state, data,
+                                                           cache)
+                _synchronize(_device_of(state))
+            m = {**m, "seconds": time.perf_counter() - t0}
+            if eval_fn is not None:
+                m = {**m, **eval_fn(state, data)}
+            if metrics_tap is not None:
+                metrics_tap(_scalars(m))
+            out.append(m)
+        return state, out
+
+    return seg_fn
+
+
+def extract_history(metrics: List[Dict[str, Any]], r0: int,
+                    length: int) -> List[Dict[str, Any]]:
+    """A segment's per-round metrics -> one plain-Python dict per round
+    (`host_metrics`: numbers for scalars, nested lists for the per-client
+    tensors), with the absolute "round" index r0 + i."""
+    history = []
+    for i in range(length):
+        entry = host_metrics(metrics[i])
+        entry["round"] = r0 + i
+        history.append(entry)
+    return history
+
+
 def run_rounds(program: RoundProgram, state, data, *, rounds: int,
                schedule: Optional[Schedule] = None,
                eval_fn: Optional[Callable] = None,
                on_reselect: Optional[Callable] = None,
                log: Optional[Callable] = None
                ) -> Tuple[Any, List[Dict[str, Any]]]:
-    """Drive `rounds` federation rounds under `schedule`.
+    """Drive `rounds` federation rounds under `schedule`, one
+    `make_segment_fn` segment per reselection period.
 
     Returns (final_state, history): one dict per round with every metric
-    (`host_metrics`), `eval_fn(state, data)`'s outputs, the absolute
-    "round" index and "seconds", the wall time of the round's body (the
-    device synchronised before the clock is read; evaluation excluded),
-    which runs in a profiler span named "wpfed.round.<index>".
+    (`extract_history`), `eval_fn(state, data)`'s outputs, the absolute
+    "round" index and "seconds" (see `make_segment_fn`).
     """
     schedule = schedule or Schedule()
     if schedule.reselect_every > 1 and program.gossip_round is None:
@@ -126,31 +195,28 @@ def run_rounds(program: RoundProgram, state, data, *, rounds: int,
                          "only Schedule(reselect_every=1) can run it")
     history: List[Dict[str, Any]] = []
     for r0, length in schedule.segments(rounds):
-        cache = None
-        for k in range(length):
-            t0 = time.perf_counter()
-            with record_function(f"wpfed.round.{r0 + k}"):
-                if k == 0:
-                    state, cache, metrics = program.global_round(state, data)
-                else:
-                    state, cache, metrics = program.gossip_round(
-                        state, data, cache)
-                _synchronize(state.codes.device)
-            seconds = time.perf_counter() - t0
-            if eval_fn is not None:
-                metrics = {**metrics, **eval_fn(state, data)}
-            entry = host_metrics(metrics)
-            entry["round"] = r0 + k
-            entry["seconds"] = seconds
-            history.append(entry)
-            if log is not None:
+        state, metrics = make_segment_fn(program, length, eval_fn=eval_fn)(
+            state, data, r0)
+        entries = extract_history(metrics, r0, length)
+        history.extend(entries)
+        if log is not None:
+            for entry in entries:
                 parts = [f"{n} {entry[n]:.4f}" for n in ("acc", "mean_loss")
                          if n in entry]
                 log(f"round {entry['round']:3d} " + " ".join(parts)
-                    + f" ({seconds:.3f}s)")
+                    + f" ({entry['seconds']:.3f}s)")
         if on_reselect is not None:
             on_reselect(r0, state)
     return state, history
+
+
+def _device_of(state) -> torch.device:
+    """The device of a round state: a FedState's codes, or those of the
+    FedState it wraps (the service's ServiceState)."""
+    codes = getattr(state, "codes", None)
+    if codes is None:
+        codes = state.fed.codes
+    return codes.device
 
 
 def _synchronize(device: torch.device) -> None:

@@ -199,7 +199,11 @@ def fused_select(codes: torch.Tensor, scores: torch.Tensor, *, bits: int,
                  gamma: float, num_neighbors: int, use_lsh: bool = True,
                  use_rank: bool = True):
     """codes (M, W) int32 (uint32 patterns), scores (M,) f32 ->
-    (ids (M, N) int32, top_w (M, N) f32), N = min(num_neighbors, M-1)."""
+    (ids (M, N) int32, top_w (M, N) f32), N = min(num_neighbors, M-1).
+    Bit-equal to `ref.fused_select_ref` on every rank, including ranks
+    whose weight is -inf (the row itself, -inf score columns such as the
+    service's departed clients): those hold their ids in ascending
+    order, as `lax.top_k` gives them."""
     m, w = codes.shape
     lut = ref.selection_lut(w, bits, gamma, device=codes.device)
     if codes.device.type == "cpu":
@@ -221,7 +225,8 @@ def fused_select_tiled(codes: torch.Tensor, scores: torch.Tensor, *,
     """`fused_select`'s contract through the column-tiled kernel, for any
     M: codes (M, W) int32, scores (M,) f32 -> (ids (M, N) int32,
     top_w (M, N) f32), N = min(num_neighbors, M-1) <= TILED_MAX_NEIGHBORS.
-    Bit-equal to `fused_select` and to the plain versions."""
+    Bit-equal to `fused_select` and to the plain versions, -inf ranks
+    included."""
     m, w = codes.shape
     lut = ref.selection_lut(w, bits, gamma, device=codes.device)
     if codes.device.type == "cpu":
@@ -329,7 +334,8 @@ def fused_select_ann_grouped(codes: torch.Tensor, scores: torch.Tensor, cand,
     <= TILED_MAX_NEIGHBORS and <= K. Each tile of `ann_plan` runs one
     slot's rows against its list on the binary tensor cores. Bit-equal
     to `ref.ann_select_grouped_ref`, and so to `fused_select_ann` on
-    `ann_candidates` of the same codes."""
+    `ann_candidates` of the same codes; a rank whose weight is not finite
+    (too few finite candidates, -inf score columns) holds id 0."""
     m, w = codes.shape
     lut = ref.selection_lut(w, bits, gamma, device=codes.device)
     if codes.device.type == "cpu":

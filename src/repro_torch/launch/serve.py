@@ -1,6 +1,7 @@
-"""Serving entry point of the transformer zoo: batched prefill and greedy
-decode on a KV cache (the port of `repro/launch/serve.py`, LM mode; the
-federated mode `serve_personalized` needs the service, a later slice).
+"""Serving entry points (the port of `repro/launch/serve.py`): the
+transformer zoo's batched prefill and greedy decode on a KV cache
+(`serve`), and the federation's per-client personalized models
+(`serve_personalized`, `--federated`).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --arch phi3-medium-14b --batch 2 --prompt-len 24 --max-new 8
@@ -8,6 +9,8 @@ federated mode `serve_personalized` needs the service, a later slice).
         --arch minitron-4b --full --batch 4 --prompt-len 2048 --max-new 32
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch grok-1-314b --full --layers 2 --prompt-len 2048 --max-new 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --federated --dataset aecg --ckpt-dir /tmp/svc --requests 64
 
 Every arch of the zoo is served: dense, MoE (grok-1, kimi-k2), the
 RG-LRU hybrid (recurrentgemma), xLSTM, the encoder-decoder (whisper; the
@@ -21,6 +24,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import time
 
 import numpy as np
@@ -102,9 +106,85 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32,
             "params": params}
 
 
+def serve_personalized(dataset: str = "mnist", *, ckpt_dir=None,
+                       requests: int = 64, seed: int = 0,
+                       reselect_every: int = 4, num_clients: int = 0,
+                       device=None, log=print):
+    """Serve batched inference from the federation's per-client
+    personalized models. With `ckpt_dir` the models are the service's
+    latest checkpoint (the kill/resume snapshot doubles as the serving
+    snapshot; its ledger is recovered and verified); without, a fresh
+    untrained federation. Requests draw test examples for random active
+    clients (`np.random.RandomState(seed)`, the JAX package's draws) and
+    go through `service.PersonalizedServer` in one flush. Returns the
+    server's throughput summary, the served accuracy, the number of
+    models, and the requests: `client_ids`, `example_ids` and the served
+    `logits` (requests, C)."""
+    from repro_torch.configs.paper_models import FedConfig, PAPER_FED_OPTIMA
+    from repro_torch.core import init_state
+    from repro_torch.data import DATASETS
+    from repro_torch.launch.fed import MODEL_FOR
+    from repro_torch.models.client import (apply_client_model,
+                                           client_template, init_client_model)
+    from repro_torch.optim import adam
+    from repro_torch.service import (PersonalizedServer, ServiceConfig,
+                                     checkpoint_num_clients,
+                                     checkpoint_param_names,
+                                     init_service_state, resume_service)
+    dev = resolve_device(device)
+    ds_fn = DATASETS[dataset]
+    if ckpt_dir and num_clients == 0:
+        # the checkpointed service fixed M when it started
+        num_clients = checkpoint_num_clients(ckpt_dir)
+    ds = ds_fn(seed=seed) if num_clients == 0 else \
+        ds_fn(num_clients=num_clients, seed=seed)
+    n_opt, alpha, gamma = PAPER_FED_OPTIMA[dataset]
+    fed = FedConfig(num_clients=ds.num_clients, num_neighbors=n_opt,
+                    alpha=alpha, gamma=gamma)
+    mcfg = MODEL_FOR[dataset]()
+    apply_fn = functools.partial(apply_client_model, client_template(mcfg))
+    template = init_service_state(
+        init_state(lambda g: init_client_model(mcfg, g, dev),
+                   adam(fed.lr), fed, seed),
+        ServiceConfig(reselect_every=reselect_every))
+    if ckpt_dir:
+        names = checkpoint_param_names(ckpt_dir)
+        if names is not None and names != set(template.fed.params):
+            raise ValueError(
+                f"the checkpoint under {ckpt_dir!r} holds another client "
+                f"model than {dataset!r}'s ({sorted(names)}); pass the "
+                f"service's --dataset")
+        state, _chain, _next = resume_service(ckpt_dir, template)
+    else:
+        state = template
+    server = PersonalizedServer(apply_fn, state.fed.params)
+    x_test = torch.from_numpy(ds.stacked()["x_test"])
+    y_test = ds.stacked()["y_test"]
+    rs = np.random.RandomState(seed)
+    active_ids = np.flatnonzero(state.active.cpu().numpy())
+    cids, tids = [], []
+    for _ in range(requests):
+        cid = int(active_ids[rs.randint(len(active_ids))])
+        t = rs.randint(x_test.shape[1])
+        server.submit(cid, x_test[cid, t])
+        cids.append(cid)
+        tids.append(t)
+    logits = np.stack(server.flush())
+    acc = float(np.mean(logits.argmax(-1) == y_test[cids, tids]))
+    res = {**server.throughput(), "served_acc": acc,
+           "num_models": int(active_ids.size), "client_ids": cids,
+           "example_ids": tids, "logits": logits}
+    if log is not None:
+        log(f"served {requests} requests from {active_ids.size} "
+            f"personalized models: {res['requests_per_s']:.0f} req/s, "
+            f"p50 {res['p50_latency_s'] * 1e3:.1f} ms, acc {acc:.3f}")
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True, help="transformer zoo arch")
+    ap.add_argument("--arch", default="",
+                    help="transformer zoo arch; omit with --federated")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--max-new", type=int, default=16)
@@ -115,9 +195,25 @@ def main(argv=None):
                     help="cut the depth to this many layers (0: the "
                          "config's)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--federated", action="store_true",
+                    help="serve the per-client personalized models of a "
+                         "federation checkpoint (repro_torch.service)")
+    ap.add_argument("--dataset", default="mnist",
+                    choices=["mnist", "aecg", "seeg"])
+    ap.add_argument("--ckpt-dir", default="",
+                    help="[federated] service checkpoint directory (omit "
+                         "for a fresh federation)")
+    ap.add_argument("--requests", type=int, default=64)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device)")
     args = ap.parse_args(argv)
+    if args.federated:
+        serve_personalized(args.dataset, ckpt_dir=args.ckpt_dir or None,
+                           requests=args.requests, seed=args.seed,
+                           device=args.device)
+        return
+    if not args.arch:
+        ap.error("--arch is required unless --federated")
     res = serve(args.arch, batch=args.batch, prompt_len=args.prompt_len,
                 max_new=args.max_new, reduced=not args.full,
                 window_override=args.window, num_layers=args.layers,

@@ -4,12 +4,14 @@
 (dicts and lists, `None` leaves as in the TCN's `res`), one client's or
 stacked (M, ...), into the port's {name: tensor} params, so that both
 packages compute on the same weights. `lm_params_from_jax(cfg, tree)`
-does the same for the transformer zoo's `init_params` pytree. The port
-never imports JAX: the caller converts its arrays to numpy first.
+does the same for the transformer zoo's `init_params` pytree, and
+`service_state_from_jax` turns a JAX federation service state into the
+port's `ServiceState`, so both packages start a round from one state. The
+port never imports JAX: the caller converts its arrays to numpy first.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict
 
 import numpy as np
 import torch
@@ -51,6 +53,41 @@ def params_from_jax(cfg: ClientModelConfig, tree,
                              f"{shape}")
         out[name] = torch.from_numpy(np.array(arr, np.float32)).to(device)
     return out
+
+
+def service_state_from_jax(cfg: ClientModelConfig, arrays: Dict[str, Any],
+                           seed: int = 0, device=None):
+    """A JAX `ServiceState` as numpy arrays -> the port's ServiceState.
+
+    `arrays` holds `params` (the stacked client pytree), `opt_state`
+    (a dict whose sub-trees shaped like the params, e.g. Adam's "m" and
+    "v", convert by `params_from_jax` and whose other entries, e.g.
+    "step", become tensors), `codes` (M, W) uint32 (held as their int32
+    bit patterns), `rankings` (M, N), `commitments` (M,) uint32 (held as
+    int64), `active` (M,) bool, `code_age` and `gossip_count` (M,) int32,
+    and the scalars `period_start` and `round`. `seed` is the port's
+    federation seed, from which its round generators derive (the JAX
+    state's PRNG key has no counterpart)."""
+    from repro_torch.core.protocol import FedState
+    from repro_torch.service.membership import ServiceState
+
+    def t(a, dtype):
+        return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)
+
+    opt = {k: params_from_jax(cfg, v, device) if isinstance(v, dict)
+           else torch.from_numpy(np.array(v)).to(device)
+           for k, v in arrays["opt_state"].items()}
+    fed = FedState(
+        params_from_jax(cfg, arrays["params"], device), opt,
+        t(np.asarray(arrays["codes"], np.uint32).view(np.int32),
+          torch.int32),
+        t(arrays["rankings"], torch.int32),
+        t(np.asarray(arrays["commitments"]).astype(np.int64), torch.int64),
+        seed, int(arrays["round"]))
+    return ServiceState(fed, t(arrays["active"], torch.bool),
+                        t(arrays["code_age"], torch.int32),
+                        t(arrays["gossip_count"], torch.int32),
+                        int(arrays["period_start"]))
 
 
 def lm_params_from_jax(cfg: ModelConfig, tree, device=None):

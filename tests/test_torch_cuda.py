@@ -1068,3 +1068,92 @@ def test_train_step_on_the_card_gives_every_leaf_a_gradient(cuda, remat):
     assert all(bool(v.isfinite()) for v in metrics.values())
     assert all(not torch.equal(a, b)
                for a, b in zip(before, tree_leaves(params)))
+
+
+# ---------------------------------------------------------------------------
+# the service's churn: departed clients' score columns at -inf, and the
+# exchange rows whose ranks they mask
+# ---------------------------------------------------------------------------
+def _depart(scores, share, seed):
+    """`scores` with max(1, round(share * M)) columns at -inf."""
+    m = scores.shape[0]
+    gone = torch.randperm(m, generator=_gen(seed), device="cuda")[
+        :max(1, round(share * m))]
+    return scores.index_fill(0, gone, float("-inf"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,w,n", [(10, 8, 9), (17, 3, 16), (40, 4, 9),
+                                   (700, 8, 128), (4097, 8, 16),
+                                   (300, 8, 200), (64, 33, 63)])
+@pytest.mark.parametrize("share", [0.2, 0.9])
+def test_selection_kernels_masked_ranks_equal_plain(cuda, m, w, n, share):
+    """With departed clients (-inf score columns, tied and gridded
+    scores) both exact entry points give the plain version's ids and
+    weights on every rank: the masked ranks hold the row and the departed
+    clients in ascending id (the knockout instance, N > 128 or W > 32,
+    through the one-shot entry point only)."""
+    codes, score_sets = _exact_inputs(m, w, 5 * m + w)
+    lut = ref.selection_lut(w, w * 32, 1.0, device=cuda)
+    tiled = selection.select_plan(m, w, n)["instance"] == "mma"
+    for scores in score_sets:
+        scores = _depart(scores, share, m)
+        kw = dict(bits=w * 32, gamma=1.0, num_neighbors=n)
+        pi, pw = ref.fused_select_ref(codes, scores, lut, num_neighbors=n)
+        oi, ow = selection.fused_select(codes, scores, **kw)
+        assert torch.equal(oi, pi) and torch.equal(ow, pw)
+        if tiled:
+            ti, tw = selection.fused_select_tiled(codes, scores, **kw)
+            assert torch.equal(ti, pi) and torch.equal(tw, pw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,m,w,n,pb,probes", [
+    ("random", 40, 8, 9, 3, 2), ("random", 130, 32, 128, 2, 2),
+    ("clustered", 4096, 8, 16, 10, 8), ("distinct", 37, 4, 9, 10, 8)])
+def test_grouped_ann_kernel_masked_ranks_equal_plain(cuda, kind, m, w, n, pb,
+                                                     probes):
+    """The grouped ANN kernel with half the clients departed equals its
+    plain version on every rank (id 0 where the weight is not finite, as
+    `ann_select_ref`) and the per-row kernel."""
+    from repro_torch.core import ann
+    codes, score_sets = _grouped_inputs(kind, m, w, 3 * m + w)
+    lut = ref.selection_lut(w, w * 32, 1.0, device=cuda)
+    for scores in score_sets:
+        scores = _depart(scores, 0.5, m)
+        kw = dict(seed=m, prefix_bits=pb, probes=probes, num_neighbors=n)
+        cand = ann.bucket_candidates(codes, scores, **kw)
+        rows = ann.ann_candidates(codes, scores, **kw)
+        call = dict(bits=w * 32, gamma=1.0, num_neighbors=n)
+        gi, gw = selection.fused_select_ann_grouped(codes, scores, cand,
+                                                    **call)
+        pi, pw = ref.ann_select_grouped_ref(codes, scores, cand, lut,
+                                            num_neighbors=n)
+        assert torch.equal(gi, pi) and torch.equal(gw, pw)
+        assert bool((gi[~gw.isfinite()] == 0).all())
+        ri, rw = selection.fused_select_ann(codes, scores, rows.ids, **call)
+        assert torch.equal(gi, ri) and torch.equal(gw, rw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,r,c", [(10, 9, 64, 10), (6, 16, 64, 12),
+                                     (600, 16, 64, 10), (8, 8, 32, 2048)])
+def test_exchange_kernels_on_masked_rows_equal_plain(cuda, m, n, r, c):
+    """Rows under churn: every third row all masked (no valid neighbour,
+    has_target False), every third only rank 0 selected (N-1 of N
+    masked). Both exchange kernels against both plain versions."""
+    own, nb, y, sel = _exchange_case(m, n, r, c, seed=m * c)
+    rows = torch.arange(m, device="cuda") % 3
+    sel[rows == 0] = False
+    sel[rows == 1] = False
+    sel[rows == 1, 0] = True
+    for fn, rtol in ((exchange.fused_exchange, 1e-5),
+                     (exchange.fused_exchange_streamed, 2e-5)):
+        kl, kv, kt, kh = got = fn(own, nb, y, sel)
+        assert not kh[0] and not kv[0].any()
+        for plain in (ref.all_in_one_exchange_ref, ref.streamed_exchange_ref):
+            pl, pv, pt, ph = plain(own, nb, y, sel)
+            torch.testing.assert_close(kl, pl, rtol=rtol, atol=1e-5)
+            torch.testing.assert_close(kt, pt, rtol=rtol, atol=1e-5)
+            assert torch.equal(kv, pv) and torch.equal(kh, ph)
+        assert _same_bits(got, fn(own, nb, y, sel))
