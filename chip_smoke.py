@@ -58,6 +58,9 @@
    per block) and `order_equal`: the kernel's sums equal to the order
    twin `ref.lsh_project_sums_split_order` bit for bit (and the
    single-client sums to the batched row); either raises when false.
+   The single-client kernel is also checked at the main shape from hash
+   rows 2^31 + 12,345 and 2^32 - 200,000 (wrapping mid-vector), against
+   its plain version and the order twin at that row offset.
    The batched LSH checks also print the row groups the wrapper launched
    and the call's peak allocation, and raise when it passes the plan's
    scratch and output (M=65,536, P=12,288 runs in groups).
@@ -130,7 +133,39 @@
    per model the layers run, parameters, prefill s, decode tokens/s,
    peak memory, flash's device ms in a profiled prefill, three profiled
    decode steps and grok's per-layer MoE dropped_frac.
-6. The continuous service (`service_path`, last, since it holds cuDNN
+6. Sharding (`sharding_path`, after training, before the service):
+   (a) a vector of Minitron-4B's 4,190,309,376 parameters, padded to
+   4,190,310,400 and hashed from a seed by global index
+   (`fill_by_index`), gets its code from `sharded_lsh_code` over 4 gloo
+   ranks spawned on this card (two NCCL ranks cannot share a GPU), each
+   making and projecting only its quarter through the single-client
+   kernel at row offsets up to 3,142,732,800; the count is set to 0 just
+   before and must read 1 on every rank just after. The unsharded kernel
+   over the whole 16.8 GB vector in this process must give the same bit
+   wherever |sum| > 1e-3. The last rank's launch (rows 3,142,732,800 on)
+   is also held against the plain version on its shard: sums within
+   1e-5 of |sum| + ||x||, equal bits wherever |sum| > 1e-3. Prints both
+   kernels' ms (each rank's alone, in turn), the plain version's s and
+   the ranks' all-reduce ms, which gloo takes through the host.
+   (b) expert parallelism on the same ranks, each making only its slice
+   of the weights (one generator per expert and FFN block): grok-1's MoE
+   layer at full width (E 8, D 6,144, F 32,768, 19.3 GB in f32; FFN
+   width sharded), 4 x 2,048 tokens at capacity factor 4 (C = T, so
+   nothing can drop), and kimi-k2's layer at full width (D 7,168, F
+   2,048, top 8) with 16 of its 384 experts, capacity factor 2 (C = T;
+   experts sharded): output within 1e-4 of the
+   unsharded `apply_moe` in this process, load_balance within 1e-4,
+   dropped_frac equal; ms per call and peak memory per rank. (c) the
+   local shards of Minitron-4B's params (2 layers) placed by
+   `param_specs` on a (2, 2) ("data", "model") gloo mesh of the ranks:
+   each its spec's block of the global tensor. (d) Minitron-4B (4 of 32
+   layers) placed on a (1, 1) NCCL mesh of this process: a 2,048-token
+   prefill on the local shards launches flash 4 times, nothing else,
+   and gives the unplaced prefill's logits bit for bit. (e)
+   `launch/dryrun.py` for kimi-k2 x train_4k on meta: bytes per device
+   on 16x16, params + AdamW state equal to the spec arithmetic written
+   out here (`spec_elems`). Every process group made is destroyed.
+7. The continuous service (`service_path`, last, since it holds cuDNN
    to deterministic algorithms): `run_service_federation("mnist",
    periods=4, reselect_every=4)` on the card with churn
    "1:leave:3,1:leave:8,2:join:3", gossip budgets
@@ -153,9 +188,10 @@
    at M = 10, 1,024 with N = 200 and 46,489; tiled at 10 and 65,536;
    grouped ANN at 10 and 65,536 clustered; ids compared on every rank)
    and both exchange kernels on rows with N-1 of N and all ranks masked.
-7. Prints {"phase": "seconds", ...}, the wall seconds of each section
+8. Prints {"phase": "seconds", ...}, the wall seconds of each section
    (build, kernel checks, main paths, profiles, attack, baselines,
-   serve, families, train, service), then {"kernels": [...]} for every kernel of the paths driven (the
+   serve, families, train, sharding, service), then {"kernels": [...]}
+   for every kernel of the paths driven (the
    per-row ANN kernel, which no path takes since the route took the
    grouped one, is checked in 2 only), then, last,
    {"ok": true, "device": {...}}.
@@ -203,7 +239,12 @@ INT8_OP_PER_S = 1979e12
 # __popc per SM per clock on compute capability 9.0 (CUDA programming
 # guide, arithmetic instruction throughput), at the H100 SXM's 1.98 GHz
 POPC_PER_S = 16 * 132 * 1.98e9
-HASH_OPS = 8            # integer operations of one Rademacher hash
+# integer-pipe instructions of one Rademacher hash in the sm_90a code of
+# the LSH kernels (`cuobjdump -sass` of build/repro_torch/lsh_projection-*.so:
+# 3 LOP3 and 2 SHF per (p, bit); the multiplies run as VIADD / IMAD on the
+# FMA pipe). The source's 8 operations overstated the bound: the kernel
+# ran under it at P = 4.19e9.
+HASH_OPS = 5
 STREAMED_EXCHANGE_NAMES = ("exchange_stats_kernel", "exchange_merge_kernel",
                            "exchange_mask_kernel", "exchange_target_kernel")
 
@@ -340,15 +381,17 @@ def bound(bytes_moved: float, ops_time_s: float):
 LSH_NAMES = ("lsh_partial", "lsh_reduce")
 
 
-def lsh_order(torch, x, k, bits):
+def lsh_order(torch, x, k, bits, row_offset=0):
     """split_len, the instance the launch took (single / few / many rows,
     with its rows and bits per block), the groups of rows the batched
     wrapper launches one by one, and whether the kernel's sums equal
-    the order twin's bit for bit; raises when they do not."""
+    the order twin's (at `row_offset`) bit for bit; raises when they do
+    not."""
     from repro_torch.kernels import lsh_projection, ref
     m, p = x.shape
     chunk = lsh_projection.split_len(p)
-    twin = ref.lsh_project_sums_split_order(x, 7, bits=bits, chunk=chunk)
+    twin = ref.lsh_project_sums_split_order(x, 7, bits=bits, chunk=chunk,
+                                            row_offset=row_offset)
     equal = bool(torch.equal(k.reshape(m, bits), twin))
     del twin
     if not equal:
@@ -848,38 +891,41 @@ def check_selection_ann_grouped(torch, m, bits, n, gen, kind="random",
                 launches=selection.GROUPED_KERNEL.launches - n0)
 
 
-def check_lsh_single(torch, p, bits, gen):
+def check_lsh_single(torch, p, bits, gen, row_offset=0):
     """The single-client kernel against its plain version and the order
-    twin, and its sums against the batched kernel's row on the same
-    vector (`batched_equal`: bit for bit)."""
+    twin, both at `row_offset` (x a shard whose hash rows start there,
+    mod 2^32), and at offset 0 its sums against the batched kernel's row
+    on the same vector (`batched_equal`: bit for bit)."""
     from repro_torch.kernels import lsh_projection, ops, ref
     x = torch.randn((p,), generator=gen, device="cuda") * 0.05
-    k = lsh_projection.lsh_project_sums(x, 7, bits=bits)
-    pl = ref.lsh_project_sums_ref(x, 7, bits=bits)
+    kw = dict(bits=bits, row_offset=row_offset)
+    k = lsh_projection.lsh_project_sums(x, 7, **kw)
+    pl = ref.lsh_project_sums_ref(x, 7, **kw)
     row = lsh_projection.lsh_project_sums_batched(x[None], 7, bits=bits)[0]
     torch.cuda.synchronize()
     err = (k - pl).abs()
     if not bool((err <= 1e-5 * (pl.abs() + x.norm())).all()):
-        raise AssertionError(f"lsh_single sums disagree: max err "
-                             f"{err.max().item()}")
+        raise AssertionError(f"lsh_single sums disagree at row offset "
+                             f"{row_offset}: max err {err.max().item()}")
     off_zero = pl.abs() > 1e-3
     if not torch.equal((k > 0)[off_zero], (pl > 0)[off_zero]):
-        raise AssertionError("lsh_single code bits disagree off zero")
-    order = lsh_order(torch, x[None], k, bits)
+        raise AssertionError(f"lsh_single code bits disagree off zero at "
+                             f"row offset {row_offset}")
+    order = lsh_order(torch, x[None], k, bits, row_offset=row_offset)
     n0 = lsh_projection.SINGLE_KERNEL.launches
-    r = ops.rademacher_block(0, p, bits, 7, device="cuda")
-    t = timings(lambda: lsh_projection.lsh_project_sums(x, 7, bits=bits),
+    r = ops.rademacher_block(row_offset, p, bits, 7, device="cuda")
+    t = timings(lambda: lsh_projection.lsh_project_sums(x, 7, **kw),
                 LSH_NAMES,
-                lambda: ref.lsh_project_sums_ref(x, 7, bits=bits),
+                lambda: ref.lsh_project_sums_ref(x, 7, **kw),
                 library_fn=lambda: torch.matmul(x, r), plain_iters=5)
     del r
     ops_s = max(2.0 * p * bits / F32_FLOP_PER_S,
                 HASH_OPS * p * bits / INT32_OP_PER_S)
     bms, by = bound(4.0 * p + 4.0 * bits, ops_s)
-    if not torch.equal(k, row):
+    if row_offset == 0 and not torch.equal(k, row):
         raise AssertionError("lsh_single sums differ from the batched row")
     return dict(**t, **order, max_abs_err=err.max().item(), bound_ms=bms,
-                bound_by=by, batched_equal=True,
+                bound_by=by, batched_equal=True if row_offset == 0 else None,
                 launches=lsh_projection.SINGLE_KERNEL.launches - n0)
 
 
@@ -1887,6 +1933,409 @@ def train_path(torch, kernels):
           "step_profile": prof})
 
 
+# the sharding phase: 4 gloo ranks on cuda:0 (two NCCL ranks cannot share
+# one card), each made by torch.multiprocessing's spawn
+SHARD_WORLD = 4
+MINITRON_PARAMS = 4_190_309_376          # configs minitron-4b param_count()
+SHARD_SEED, SHARD_BITS = 11, 256
+GEN_BLOCK = 1 << 26                      # indices hashed at once
+MOE_TOKENS = (4, 2048)
+# grok-1 at full width, the FFN width sharded: capacity factor E / k = 4
+# gives C = T, which no expert can pass (each token picks an expert once),
+# so nothing is dropped; kimi-k2 at full width (D 7,168, F 2,048, top 8)
+# with 16 of its 384 experts (E / k = 2: C = T), its experts sharded
+SHARD_MOE = {"grok": ("grok-1-314b", {"moe_capacity_factor": 4.0}),
+             "kimi16": ("kimi-k2-1t-a32b",
+                        {"num_experts": 16, "moe_capacity_factor": 2.0})}
+
+
+def fill_by_index(torch, out, start: int, real: int, seed: int) -> None:
+    """out[i] = a value in [-1, 1) hashed from the global index start + i,
+    0 from index `real` on (the padding): any rank makes its own shard of
+    one vector, and one process the whole of it."""
+    from repro_torch.kernels.ops import K1, K3, MASK32, mul32
+    for a in range(0, out.numel(), GEN_BLOCK):
+        b = min(a + GEN_BLOCK, out.numel())
+        idx = torch.arange(start + a, start + b, dtype=torch.int64,
+                           device=out.device)
+        h = mul32(idx & MASK32, K1) ^ ((seed * K3) & MASK32)
+        h = h ^ (h >> 15)
+        h = mul32(h, K3)
+        h = h ^ (h >> 13)
+        v = (h & 0xFFFFFF).to(torch.float32) * (2.0 / (1 << 24)) - 1.0
+        out[a:b] = torch.where(idx < real, v, 0.0)
+
+
+def shard_moe_cfg(name: str):
+    from repro_torch.configs import get_config
+    arch, changes = SHARD_MOE[name]
+    return dataclasses.replace(get_config(arch), **changes)
+
+
+def shard_moe_params(torch, name: str, cfg, rank=None, world=SHARD_WORLD):
+    """The MoE layer's weights, each expert's FFN made as `world` column
+    blocks (wi, wg) / row blocks (wo), each from its own generator; with
+    `rank`, only that rank's slice by `moe_specs` (its experts, or every
+    expert's rank-th block)."""
+    from repro_torch.models import moe
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    e_sharded = e >= moe.EXPERT_SHARD_MIN
+    fb = f // world
+
+    def block(key, ex, b, shape, scale):
+        g = torch.Generator(device="cuda")
+        g.manual_seed(1_000_003 * (key + 1) + 1_009 * ex + b)
+        return torch.randn(shape, generator=g, device="cuda") * scale
+
+    experts = range(e) if rank is None or not e_sharded else \
+        range(rank * e // world, (rank + 1) * e // world)
+    blocks = range(world) if rank is None or e_sharded else (rank,)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(7)
+    p = {"router": torch.randn((d, e), generator=g, device="cuda")
+         * d ** -0.5}
+    for key, name_ in enumerate(("wi", "wg", "wo")):
+        if name_ not in moe.moe_shapes(cfg):
+            continue
+        up = name_ != "wo"
+        w = torch.empty((len(experts), d, fb * len(blocks)) if up else
+                        (len(experts), fb * len(blocks), d), device="cuda")
+        for i, ex in enumerate(experts):
+            for j, b in enumerate(blocks):
+                cols = slice(j * fb, (j + 1) * fb)
+                if up:
+                    w[i, :, cols] = block(key, ex, b, (d, fb), d ** -0.5)
+                else:
+                    w[i, cols] = block(key, ex, b, (fb, d), f ** -0.5)
+        p[name_] = w
+    return p
+
+
+def shard_moe_tokens(torch, cfg):
+    g = torch.Generator(device="cuda")
+    g.manual_seed(5)
+    return torch.randn((*MOE_TOKENS, cfg.d_model), generator=g,
+                       device="cuda")
+
+
+def sharding_rank(rank: int, world: int, plan: dict) -> dict:
+    """One of the sharding phase's ranks (gloo, on cuda:0): its shard of
+    the LSH vector through `sharded_lsh_code` (count set to 0 just
+    before, read just after); both MoE layers through `apply_moe_sharded`
+    on its slice of the weights; the local shards of Minitron-4B's params
+    (2 layers) placed on a (2, 2) ("data", "model") mesh."""
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import lsh
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import lsh_projection, ref
+    from repro_torch.kernels.ops import CHUNK
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import init_params, param_specs
+    from repro_torch.sharding import local_shape, place, to_local
+    from repro_torch.tree import tree_paths
+    resolve_device("cuda")
+    torch.cuda.set_device(0)
+    out = {}
+
+    # 1. the sharded LSH code; then each rank's kernel and the all-reduce
+    # timed alone, one rank after another
+    n = plan["lsh_p"] // world
+    shard = torch.empty(n, device="cuda")
+    fill_by_index(torch, shard, rank * n, MINITRON_PARAMS, SHARD_SEED)
+    kernel = lsh_projection.SINGLE_KERNEL
+    torch.cuda.synchronize()
+    dist.barrier()
+    kernel.launches = 0
+    code = lsh.sharded_lsh_code(shard, SHARD_SEED, SHARD_BITS)
+    torch.cuda.synchronize()
+    launches = kernel.launches
+    padded = F.pad(shard, (0, (-n) % CHUNK))
+    del shard
+    kw = dict(bits=SHARD_BITS, row_offset=rank * n)
+    for turn in range(world):
+        dist.barrier()
+        if turn == rank:
+            sums = lsh_projection.lsh_project_sums(padded, SHARD_SEED, **kw)
+            kernel_ms = time_ms(lambda: lsh_projection.lsh_project_sums(
+                padded, SHARD_SEED, **kw), warmup=0, iters=3)
+    # the last rank's shard (rows 3.14e9 on) against the plain version,
+    # the others waiting: sums within 1e-5 of |sum| + ||x||, and equal
+    # bits wherever |sum| > 1e-3
+    plain = None
+    if rank == world - 1:
+        t0 = time.perf_counter()
+        want = ref.lsh_project_sums_ref(padded, SHARD_SEED, **kw)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        err = (sums - want).abs()
+        firm = want.abs() > 1e-3
+        plain = {"row_offset": rank * n, "plain_s": plain_s,
+                 "max_abs_err": err.max().item(),
+                 "sums_ok": bool((err <= 1e-5 * (want.abs()
+                                                 + padded.norm())).all()),
+                 "firm_bits": int(firm.sum()),
+                 "bits_equal": bool(torch.equal((sums > 0)[firm],
+                                                (want > 0)[firm]))}
+    partial = torch.ones(SHARD_BITS, device="cuda")
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dist.all_reduce(partial)
+    torch.cuda.synchronize()
+    out["lsh"] = {"code": code.cpu(), "launches": launches,
+                  "row_offset": rank * n, "shard_p": padded.numel(),
+                  "kernel_ms": kernel_ms, "plain": plain,
+                  "allreduce_ms": (time.perf_counter() - t0) * 1e3}
+    del padded
+    torch.cuda.empty_cache()
+
+    # 2. expert parallelism: each rank makes its slice of the weights
+    moe.set_sharded_impl(dist.group.WORLD)
+    for name in SHARD_MOE:
+        cfg = shard_moe_cfg(name)
+        p = shard_moe_params(torch, name, cfg, rank, world)
+        x = shard_moe_tokens(torch, cfg)
+        dist.barrier()
+        torch.cuda.reset_peak_memory_stats()
+        got, aux = moe.moe_forward(cfg, p, x)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(2):
+            dist.barrier()
+            t0 = time.perf_counter()
+            moe.moe_forward(cfg, p, x)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = {"out": got.cpu(), "load_balance": float(aux[
+            "load_balance"]), "dropped_frac": float(aux["dropped_frac"]),
+            "ms": min(times), "peak_gb":
+            torch.cuda.max_memory_allocated() / 1e9,
+            "wi": tuple(p["wi"].shape)}
+        del p, x, got
+        torch.cuda.empty_cache()
+    moe.set_sharded_impl(None)
+
+    # 3. the (2, 2) mesh: every local shard is its spec's block
+    mesh = make_device_mesh((2, 2), ("data", "model"), "cuda")
+    cfg = dataclasses.replace(get_config("minitron-4b"), num_layers=2)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = init_params(cfg, gen)                 # the same on every rank
+    specs = param_specs(cfg)
+    local = to_local(place(params, mesh, specs))
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    bad, leaves = [], 0
+    for (path, t), (_, spec), (_, g) in zip(tree_paths(local),
+                                            tree_paths(specs),
+                                            tree_paths(params)):
+        want = local_shape(g.shape, spec, mesh)
+        for d, ax in enumerate(spec):
+            if ax is not None:
+                g = g.narrow(d, coord[ax] * want[d], want[d])
+        leaves += 1
+        if tuple(t.shape) != want or not torch.equal(t, g):
+            bad.append(("/".join(path), tuple(t.shape), want))
+    out["mesh22"] = {"leaves": leaves, "bad": bad, "coord": coord}
+    return out
+
+
+def spec_elems(shape, spec, sizes) -> int:
+    """Elements one device holds of a `shape` leaf laid out by `spec` on
+    axes of `sizes`, a dimension its axes do not divide replicated (the
+    dryrun's rule, written out here independently)."""
+    n = 1
+    for d, dim in enumerate(shape):
+        ax = spec[d] if d < len(spec) else None
+        axes = () if ax is None else (ax if isinstance(ax, tuple) else (ax,))
+        div = math.prod(sizes[a] for a in axes)
+        n *= dim // div if dim % div == 0 else dim
+    return n
+
+
+def sharding_path(torch, kernels):
+    """Path 6, sharding: the unsharded references on this process first,
+    then 4 spawned gloo ranks on cuda:0 (`sharding_rank`), then
+    Minitron-4B's params placed on a (1, 1) NCCL mesh of this process,
+    then the dryrun of kimi-k2 on meta. Returns the launches of the
+    sharded runs: B.2 summed over the ranks (1 each), flash in the placed
+    prefill (4)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import lsh_projection, ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh, spawn_ranks
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import (init_params, meta_params,
+                                                param_specs)
+    from repro_torch.sharding import place, to_local
+    from repro_torch.train import make_prefill_step
+    from repro_torch.tree import tree_leaves
+
+    # 1. the whole vector's code by the unsharded kernel (a comparison
+    # launch: counted nowhere)
+    p_pad = -(-MINITRON_PARAMS // ops.CHUNK) * ops.CHUNK
+    x = torch.empty(p_pad, device="cuda")
+    fill_by_index(torch, x, 0, MINITRON_PARAMS, SHARD_SEED)
+    n0 = lsh_projection.SINGLE_KERNEL.launches
+    whole = lsh_projection.lsh_project_sums(x, SHARD_SEED, bits=SHARD_BITS)
+    whole_ms = time_ms(lambda: lsh_projection.lsh_project_sums(
+        x, SHARD_SEED, bits=SHARD_BITS), warmup=0, iters=2)
+    lsh_projection.SINGLE_KERNEL.launches = n0
+    plan = {"lsh_p": p_pad}
+    del x
+    torch.cuda.empty_cache()
+    # the unsharded MoE layers, one process, the same weights
+    refs = {}
+    for name in SHARD_MOE:
+        cfg = shard_moe_cfg(name)
+        p = shard_moe_params(torch, name, cfg)
+        xt = shard_moe_tokens(torch, cfg)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        o, aux = moe.apply_moe(cfg, p, xt)
+        torch.cuda.synchronize()
+        refs[name] = {"out": o.cpu(), "ms": (time.perf_counter() - t0) * 1e3,
+                      "load_balance": float(aux["load_balance"]),
+                      "dropped_frac": float(aux["dropped_frac"]),
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del p, xt, o
+        torch.cuda.empty_cache()
+
+    # 2. the ranks
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(sharding_rank, SHARD_WORLD, plan)
+    ranks_s = time.perf_counter() - t0
+    firm = whole.abs() > 1e-3
+    want_bits = (whole > 0)[firm].cpu()
+    for r, res in enumerate(ranks):
+        got = ops.unpack_bits(res["lsh"]["code"], SHARD_BITS)[firm.cpu()]
+        if not torch.equal(got.bool(), want_bits) or \
+                res["lsh"]["launches"] != 1:
+            raise AssertionError(
+                f"rank {r}: the sharded code disagrees with the unsharded "
+                f"kernel's on a bit with |sum| > 1e-3, or B.2 launched "
+                f"{res['lsh']['launches']} times, not 1")
+    plain = ranks[-1]["lsh"]["plain"]
+    if not (plain["sums_ok"] and plain["bits_equal"]):
+        raise AssertionError(f"rank {SHARD_WORLD - 1}'s B.2 launch at row "
+                             f"offset {plain['row_offset']} disagrees with "
+                             f"its plain version: {plain}")
+    bms, by = bound(4.0 * p_pad + 4.0 * SHARD_BITS, max(
+        2.0 * p_pad * SHARD_BITS / F32_FLOP_PER_S,
+        HASH_OPS * p_pad * SHARD_BITS / INT32_OP_PER_S))
+    emit({"phase": "sharding_lsh", "p": MINITRON_PARAMS, "p_padded": p_pad,
+          "bits": SHARD_BITS, "ranks": SHARD_WORLD,
+          "firm_bits": int(firm.sum()), "codes_equal_on_firm_bits": True,
+          "unsharded_kernel_ms": whole_ms, "unsharded_bound_ms": bms,
+          "bound_by": by,
+          "row_offsets": [r["lsh"]["row_offset"] for r in ranks],
+          "shard_p": ranks[0]["lsh"]["shard_p"],
+          "rank_kernel_ms": [r["lsh"]["kernel_ms"] for r in ranks],
+          "allreduce_ms_gloo_through_the_host":
+          [r["lsh"]["allreduce_ms"] for r in ranks],
+          "launches_per_rank": [r["lsh"]["launches"] for r in ranks],
+          "last_rank_against_plain": plain, "ranks_wall_s": ranks_s})
+    for name in SHARD_MOE:
+        ref = refs[name]
+        for r, res in enumerate(ranks):
+            got = res[name]
+            err = (got["out"] - ref["out"]).abs().max().item()
+            if err > 1e-4 or abs(got["load_balance"]
+                                 - ref["load_balance"]) > 1e-4 \
+                    or got["dropped_frac"] != ref["dropped_frac"]:
+                raise AssertionError(
+                    f"{name} rank {r}: sharded MoE off the unsharded layer "
+                    f"(max err {err}, load_balance {got['load_balance']} vs "
+                    f"{ref['load_balance']}, dropped {got['dropped_frac']} "
+                    f"vs {ref['dropped_frac']})")
+        if name == "grok" and ref["dropped_frac"] != 0.0:
+            raise AssertionError("grok-1's layer dropped tokens at C = T")
+        cfg = shard_moe_cfg(name)
+        emit({"phase": "sharding_moe", "layer": name, "arch": cfg.name,
+              "experts": cfg.num_experts, "top_k": cfg.experts_per_token,
+              "d_model": cfg.d_model, "d_ff": cfg.d_ff,
+              "tokens": math.prod(MOE_TOKENS),
+              "sharded": "experts" if cfg.num_experts
+              >= moe.EXPERT_SHARD_MIN else "ffn width",
+              "rank_wi_shape": ranks[0][name]["wi"],
+              "max_abs_err": max((r[name]["out"] - ref["out"]).abs().max()
+                                 .item() for r in ranks),
+              "load_balance": ref["load_balance"],
+              "dropped_frac": ref["dropped_frac"],
+              "unsharded_ms": ref["ms"], "unsharded_peak_gb": ref["peak_gb"],
+              "rank_ms": [r[name]["ms"] for r in ranks],
+              "rank_peak_gb": [r[name]["peak_gb"] for r in ranks]})
+    for r, res in enumerate(ranks):
+        if res["mesh22"]["bad"] or res["mesh22"]["leaves"] < 10:
+            raise AssertionError(f"rank {r} of the (2, 2) mesh: local shards "
+                                 f"off their specs: {res['mesh22']}")
+    emit({"phase": "sharding_mesh22", "leaves": ranks[0]["mesh22"]["leaves"],
+          "coords": [r["mesh22"]["coord"] for r in ranks],
+          "local_shards_equal_spec_blocks": True})
+
+    # 3. Minitron-4B (4 of 32 layers) placed by param_specs on a (1, 1)
+    # NCCL mesh: a 2,048-token prefill, flash once per layer
+    cfg = dataclasses.replace(get_config("minitron-4b"), num_layers=4)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = init_params(cfg, gen)
+    tokens = {"tokens": torch.randint(0, cfg.vocab_size, (1, 2048),
+                                      generator=gen, device="cuda")}
+    step = make_prefill_step(cfg)
+    with torch.no_grad():
+        plain, _ = step(params, tokens)
+        mesh = make_host_mesh("cuda")
+        try:
+            placed = place(params, mesh, param_specs(cfg))
+            local = to_local(placed)
+            for k in kernels.values():
+                k.launches = 0
+            got, _ = step(local, tokens)
+            torch.cuda.synchronize()
+            launches = {name: k.launches for name, k in kernels.items()}
+        finally:
+            dist.destroy_process_group()
+    emit({"phase": "main_path_launches", "run": "sharding placed prefill",
+          **launches})
+    if launches["flash_attention"] != 4 or any(
+            v for n, v in launches.items() if n != "flash_attention") \
+            or not torch.equal(got, plain):
+        raise AssertionError(f"the placed prefill must launch flash 4 times "
+                             f"and nothing else ({launches}) and give the "
+                             f"unplaced logits bit for bit")
+    emit({"phase": "sharding_placed", "arch": cfg.name, "num_layers": 4,
+          "mesh": "1x1 nccl", "leaves": len(tree_leaves(placed)),
+          "logits_bitwise_equal": True})
+    del params, placed, local, plain, got
+    torch.cuda.empty_cache()
+
+    # 4. the dryrun on meta; params + optimizer against the spec
+    # arithmetic written out here
+    res = dryrun.dryrun_one("kimi-k2-1t-a32b", "train_4k", verbose=False)
+    kimi = get_config("kimi-k2-1t-a32b")
+    sizes = {"data": 16, "model": 16}
+    elems = sum(spec_elems(t.shape, sp, sizes) for t, sp in zip(
+        tree_leaves(meta_params(kimi)), tree_leaves(param_specs(kimi))))
+    want = elems * 2 + elems * 4 * 2 + 4      # bf16 params; f32 m, v; step
+    got = res["bytes_per_device"]["params"] + \
+        res["bytes_per_device"]["optimizer"]
+    if got != want:
+        raise AssertionError(f"dryrun params + optimizer {got} bytes per "
+                             f"device, the specs give {want}")
+    emit({"phase": "sharding_dryrun", **{k: res[k] for k in (
+        "arch", "shape", "mesh", "chips", "device", "bytes_per_device",
+        "flops_per_device", "flops", "roofline", "wall_s")},
+        "params_plus_optimizer_equal_spec_arithmetic": True})
+    return {"lsh_single": sum(r["lsh"]["launches"] for r in ranks),
+            "flash_attention": launches["flash_attention"]}
+
+
 SERVICE = dict(reselect_every=4, churn="1:leave:3,1:leave:8,2:join:3",
                gossip_counts="4,4,2,4,1,4,3,4,4,2")
 SERVICE_FAULTS = ("seed=7,drop=0.1,delay=0.1,duplicate=0.1,corrupt=0.1,"
@@ -2209,6 +2658,13 @@ def main() -> int:
          lambda p=p: check_lsh_single(torch, p, 256, gen))
         for p in (421_888, 4096, 8192, 12_288)
     ] + [
+        # the main shape at hash rows past 2^31, and ending 221,888 rows
+        # past 2^32 (the row index wraps mid-vector, as uint32 does)
+        ("lsh_single", dict(p=421_888, bits=256, row_offset=off), False,
+         lambda off=off: check_lsh_single(torch, 421_888, 256, gen,
+                                          row_offset=off))
+        for off in ((1 << 31) + 12_345, (1 << 32) - 200_000)
+    ] + [
         ("hamming", dict(m=m, bits=256), m == 10,
          lambda m=m: check_hamming(torch, m, 256, gen))
         for m in (10, 1024, 16_384)
@@ -2338,15 +2794,23 @@ def main() -> int:
     # checkpoints; no kernel lies on this path
     train_path(torch, kernels)
     lap("train")
+    torch.cuda.empty_cache()
 
-    # 7. the continuous service: churn, gossip budgets, faults, a crash
+    # 7. sharding: sharded LSH codes at Minitron-4B's parameter count and
+    # expert-parallel MoE over 4 gloo ranks on this card, specs placed on
+    # a (1, 1) NCCL mesh, the dryrun on meta
+    emit({"phase": "main_path_launches", "run": "sharding",
+          **sharding_path(torch, kernels)})
+    lap("sharding")
+
+    # 8. the continuous service: churn, gossip budgets, faults, a crash
     # and a resume, then personalized serving (last: it holds cuDNN to
     # deterministic algorithms for the rest of the process)
     service_path(torch, kernels)
     lap("service")
     emit({"phase": "seconds", **laps})
 
-    # 8. every ported kernel
+    # 9. every ported kernel
     meta = {
         "lsh_projection": ("src/repro_torch/kernels/csrc/lsh_projection.cu",
                            "src/repro/kernels/lsh_projection.py:134"),

@@ -29,6 +29,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 # dynamic shared memory one H100 block may use (227 KB of the SM's 256)
 MAX_SHARED_BYTES = 227 * 1024
+# devices on which every wrapper takes its kernel's plain version: the CPU
+# (no card: the tests) and `meta` (shapes only, nothing is computed: the
+# dryrun counts a step's FLOPs there). Any other device but CUDA raises.
+PLAIN_DEVICES = ("cpu", "meta")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

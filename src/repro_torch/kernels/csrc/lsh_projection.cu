@@ -11,7 +11,11 @@
 // The invariant. Every sum sums[m, j] is computed the same way. P is cut
 // into S = P / L consecutive splits of length L. Within a split one f32
 // chain runs acc = fmaf(r, x, acc) from 0.0f in increasing p; the splits
-// are then added in the fixed order k = 0..S-1, starting from 0.0f. L is
+// are then added in the fixed order k = 0..S-1 in f64, starting from 0.0,
+// and the f64 total is rounded to f32 once. (An f32 running total over
+// S = 511,513 splits of 2,048, a quarter of Minitron-4B, drifted 1e-5
+// from the exact sum, ten times the plain version's error; in f64 only
+// the splits' own f32 chains round.) L is
 // chosen by the caller from P alone (lsh_projection.py:split_len), never
 // from M, bits or the tiling, so any row of the batched kernel equals the
 // single-client kernel's sums bit for bit, at any M, and the result is the
@@ -51,14 +55,18 @@
 //   blocks share an SM (at most 128 registers), so one block's staging
 //   runs under the other's FMAs.
 // A second kernel (lsh_reduce_kernel) adds the S partial sums of each
-// output in order k = 0..S-1: a block copies up to 128 splits of 32
+// output in order k = 0..S-1 in f64: a block copies up to 128 splits of 32
 // outputs into shared memory at once (cp.async) and one warp adds them.
 //
 // Bound on the H100: M*P*4 bytes of x over 3.35 TB/s, or the larger of
-// 2*M*P*bits f32 operations over the 67 TFLOP/s of the f32 pipes and ~8
-// integer operations of hash per (p, j) over the int32 rate. One client's
-// sums (single row) are bound by the hash: at P = 421,888, bits = 256
-// about 52 us against 3.2 us of f32 work. At M >= 64 the f32 work binds,
+// 2*M*P*bits f32 operations over the 67 TFLOP/s of the f32 pipes and the
+// hash's integer-pipe instructions per (p, j) over the int32 rate: 5 in
+// this file's sm_90a code (3 LOP3 and 2 SHF, as `cuobjdump -sass` of the
+// built library shows: p * K1 becomes an add and h * K3 an IMAD, both on
+// the FMA pipe, and the last shift, xor and bit test fuse into one LOP3).
+// One client's sums (single row) are bound by the hash: at P = 421,888,
+// bits = 256 about 32 us against 3.2 us of f32 work. At M >= 64 the f32
+// work binds,
 // and the many-row instance spends 64 of about 72 issue slots per p on
 // FMAs; the single/few-row instances spend TM of about TM + 8 + TM / 4.
 // The partial buffer (S, M, bits) adds S*M*bits*4 bytes written and read
@@ -124,7 +132,7 @@ __device__ __forceinline__ void cp_async_wait_one() {
 template <int RM, int TB>
 __global__ void __launch_bounds__(TB)
 lsh_partial_kernel(const float* __restrict__ x, int m, long long p_total,
-                   int chunk, int bits, uint32_t seed,
+                   int chunk, int bits, uint32_t seed, uint32_t i0,
                    float* __restrict__ partial) {
   __shared__ __align__(16) float xs[2][RM][SUB];   // double-buffered
   const int split = blockIdx.x;
@@ -157,7 +165,7 @@ lsh_partial_kernel(const float* __restrict__ x, int m, long long p_total,
     else cp_async_commit();
     cp_async_wait_one();
     __syncthreads();
-    const uint32_t p0 = (uint32_t)(p_begin + s);
+    const uint32_t p0 = (uint32_t)(p_begin + s) + i0;   // wraps mod 2^32
 #pragma unroll 4
     for (int pp = 0; pp < SUB; pp += 4) {
       const float r0 = rademacher(p0 + pp + 0, cj);
@@ -189,7 +197,8 @@ lsh_partial_kernel(const float* __restrict__ x, int m, long long p_total,
 __global__ void __launch_bounds__(NT, 2)
 lsh_partial_many_kernel(const float* __restrict__ x, int m,
                         long long p_total, int chunk, int bits,
-                        uint32_t seed, float* __restrict__ partial) {
+                        uint32_t seed, uint32_t i0,
+                        float* __restrict__ partial) {
   // xs[p * BM + 4 * (g ^ ((p >> 2) & 7)) + e] = x[m0 + 4g + e, p]
   __shared__ __align__(16) float xs[TS * BM];
   __shared__ __align__(16) float rs[TS][BJ];   // R[p, j0 + j] as +-1.0f
@@ -227,7 +236,7 @@ lsh_partial_many_kernel(const float* __restrict__ x, int m,
       dst[2 * BM] = v.z;
       dst[3 * BM] = v.w;
     }
-    const uint32_t p0 = (uint32_t)(p_begin + s);
+    const uint32_t p0 = (uint32_t)(p_begin + s) + i0;   // wraps mod 2^32
 #pragma unroll
     for (int k = 0; k < TS / 2; ++k) {
       const int pp = gp + 2 * k;
@@ -270,7 +279,8 @@ lsh_partial_many_kernel(const float* __restrict__ x, int m,
   }
 }
 
-// out[i] = sum over k = 0..S-1, in order, of partial[k, i]. A block
+// out[i] = sum over k = 0..S-1, in order and in f64, of partial[k, i],
+// rounded to f32 once. A block
 // owns RW = 32 outputs. Its 256 threads copy up to RK = 128 splits of them
 // into shared memory with cp.async (16 bytes each, all in flight at
 // once), then its first warp adds them in order, one output per lane. So
@@ -289,7 +299,7 @@ lsh_reduce_kernel(const float* __restrict__ partial, int splits, long long n,
   const long long i0 = (long long)blockIdx.x * RW;
   const int c4 = t % (RW / 4), r0 = t / (RW / 4);
   const bool col_ok = i0 + 4 * c4 < n;      // n % 4 == 0
-  float s = 0.0f;
+  double s = 0.0;
   for (int k0 = 0; k0 < splits; k0 += RK) {
     const int kc = splits - k0 < RK ? splits - k0 : RK;
 #pragma unroll
@@ -306,11 +316,11 @@ lsh_reduce_kernel(const float* __restrict__ partial, int splits, long long n,
     __syncthreads();
     if (t < RW) {
 #pragma unroll 8
-      for (int k = 0; k < kc; ++k) s += ps[k][t];
+      for (int k = 0; k < kc; ++k) s += (double)ps[k][t];
     }
     __syncthreads();
   }
-  if (t < RW && i0 + t < n) out[i0 + t] = s;
+  if (t < RW && i0 + t < n) out[i0 + t] = (float)s;
 }
 
 struct Plan {
@@ -346,30 +356,32 @@ Plan make_plan(int m, long long splits, int bits) {
 
 template <int RM, int TB>
 void launch_rows(const float* x, int m, long long p, int chunk, int bits,
-                 uint32_t seed, float* partial, cudaStream_t st) {
+                 uint32_t seed, uint32_t i0, float* partial,
+                 cudaStream_t st) {
   dim3 grid((unsigned)(p / chunk), (m + RM - 1) / RM, (bits + TB - 1) / TB);
   lsh_partial_kernel<RM, TB><<<grid, TB, 0, st>>>(x, m, p, chunk, bits,
-                                                   seed, partial);
+                                                   seed, i0, partial);
 }
 
 template <int RM>
 void launch_tb(int tb, const float* x, int m, long long p, int chunk,
-               int bits, uint32_t seed, float* partial, cudaStream_t st) {
+               int bits, uint32_t seed, uint32_t i0, float* partial,
+               cudaStream_t st) {
   switch (tb) {
-    case 256: return launch_rows<RM, 256>(x, m, p, chunk, bits, seed,
+    case 256: return launch_rows<RM, 256>(x, m, p, chunk, bits, seed, i0,
                                           partial, st);
-    case 128: return launch_rows<RM, 128>(x, m, p, chunk, bits, seed,
+    case 128: return launch_rows<RM, 128>(x, m, p, chunk, bits, seed, i0,
                                           partial, st);
-    case 64: return launch_rows<RM, 64>(x, m, p, chunk, bits, seed,
+    case 64: return launch_rows<RM, 64>(x, m, p, chunk, bits, seed, i0,
                                         partial, st);
-    default: return launch_rows<RM, 32>(x, m, p, chunk, bits, seed,
+    default: return launch_rows<RM, 32>(x, m, p, chunk, bits, seed, i0,
                                         partial, st);
   }
 }
 
 int launch(const float* x, int m, long long p, int chunk, int bits,
-           unsigned int seed, float* partial, float* out, int device,
-           void* stream) {
+           unsigned int seed, unsigned int i0, float* partial, float* out,
+           int device, void* stream) {
   if (chunk <= 0 || chunk % SUB || p % chunk || bits % 32 || m <= 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -380,15 +392,15 @@ int launch(const float* x, int m, long long p, int chunk, int bits,
   if (pl.instance == MANY) {
     dim3 grid((unsigned)splits, (m + BM - 1) / BM, (bits + BJ - 1) / BJ);
     lsh_partial_many_kernel<<<grid, NT, 0, st>>>(x, m, p, chunk, bits,
-                                                 seed, partial);
+                                                 seed, i0, partial);
   } else if (pl.tm == 1) {
-    launch_tb<1>(pl.tb, x, m, p, chunk, bits, seed, partial, st);
+    launch_tb<1>(pl.tb, x, m, p, chunk, bits, seed, i0, partial, st);
   } else if (pl.tm == 4) {
-    launch_tb<4>(pl.tb, x, m, p, chunk, bits, seed, partial, st);
+    launch_tb<4>(pl.tb, x, m, p, chunk, bits, seed, i0, partial, st);
   } else if (pl.tm == 8) {
-    launch_tb<8>(pl.tb, x, m, p, chunk, bits, seed, partial, st);
+    launch_tb<8>(pl.tb, x, m, p, chunk, bits, seed, i0, partial, st);
   } else {
-    launch_tb<16>(pl.tb, x, m, p, chunk, bits, seed, partial, st);
+    launch_tb<16>(pl.tb, x, m, p, chunk, bits, seed, i0, partial, st);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -408,16 +420,22 @@ extern "C" int lsh_project_sums_batched(const float* x, int m, long long p,
                                         unsigned int seed, float* partial,
                                         float* out, int device,
                                         void* stream) {
-  return launch(x, m, p, chunk, bits, seed, partial, out, device, stream);
+  return launch(x, m, p, chunk, bits, seed, 0u, partial, out, device,
+                stream);
 }
 
 // One client: x: (p,) f32; partial: (p/chunk, bits) f32 scratch; out:
 // (bits,) f32. The single-row instance of the same launch, so its sums
-// equal the batched kernel's row bit for bit.
+// equal the batched kernel's row bit for bit. x[p] is hashed as row
+// i0 + p of R, mod 2^32 (rademacher_block's uint32(i0) + iota): a shard
+// of a longer vector that starts at global index i0 (core/lsh.py:
+// sharded_lsh_code); i0 = 0 is the unsharded call.
 extern "C" int lsh_project_sums(const float* x, long long p, int chunk,
-                                int bits, unsigned int seed, float* partial,
-                                float* out, int device, void* stream) {
-  return launch(x, 1, p, chunk, bits, seed, partial, out, device, stream);
+                                int bits, unsigned int seed, unsigned int i0,
+                                float* partial, float* out, int device,
+                                void* stream) {
+  return launch(x, 1, p, chunk, bits, seed, i0, partial, out, device,
+                stream);
 }
 
 // The launch's choice for (m, p, chunk, bits), launching nothing:

@@ -34,8 +34,8 @@ target pass), the floor where the mask lies between the statistics and
 the target.
 
 Each wrapper takes its plain version (`ref.all_in_one_exchange_ref`,
-`ref.streamed_exchange_ref`) for CPU tensors only; for a CUDA tensor it
-launches its kernel or raises.
+`ref.streamed_exchange_ref`) for CPU and `meta` tensors only
+(`build.PLAIN_DEVICES`); for a CUDA tensor it launches its kernel or raises.
 """
 from __future__ import annotations
 
@@ -44,7 +44,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.build import MAX_SHARED_BYTES, CudaKernel
+from repro_torch.kernels.build import (MAX_SHARED_BYTES, PLAIN_DEVICES,
+                                       CudaKernel)
 
 KERNEL = CudaKernel(
     "exchange", "exchange.cu", "fused_exchange",
@@ -166,7 +167,7 @@ def fused_exchange(own_logits: torch.Tensor, neighbor_logits: torch.Tensor,
     """own (M, R, C), neighbour (M, N, R, C), y_ref (M, R), sel (M, N) ->
     (l_ij (M, N) f32, valid (M, N) bool, target (M, R, C) f32,
     has_target (M,) bool)."""
-    if neighbor_logits.device.type == "cpu":
+    if neighbor_logits.device.type in PLAIN_DEVICES:
         return ref.all_in_one_exchange_ref(own_logits, neighbor_logits,
                                            y_ref, sel_mask,
                                            lsh_verification=lsh_verification)
@@ -246,7 +247,7 @@ def fused_exchange_streamed(own_logits: torch.Tensor,
     sel (M, N) -> (l_ij (M, N) f32, valid (M, N) bool, target (M, R, C)
     f32, has_target (M,) bool). l_ij and target agree with the plain
     versions within f32 rounding; valid and has_target are equal."""
-    if neighbor_logits.device.type == "cpu":
+    if neighbor_logits.device.type in PLAIN_DEVICES:
         return ref.streamed_exchange_ref(own_logits, neighbor_logits, y_ref,
                                          sel_mask,
                                          lsh_verification=lsh_verification)

@@ -20,7 +20,8 @@ the H100 is the 4 * N * pairs * dh operations on the tensor cores: f32 at
 `gqa_attention` takes the model's (B, S, H, dh) queries and (B, S, KV, dh)
 keys and values and reads KV head h // (H // KV) for query head h through
 strides, without materialising the repeat. Both take the plain version
-for CPU tensors only; for CUDA tensors they launch the kernel or raise.
+for CPU and `meta` tensors only (`build.PLAIN_DEVICES`); for CUDA tensors
+they launch the kernel or raise.
 The kernel has no backward (the JAX package has none either): on the
 card they raise when grad mode is on and q, k or v requires grad, rather
 than return an output without a gradient.
@@ -32,7 +33,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.build import CudaKernel
+from repro_torch.kernels.build import PLAIN_DEVICES, CudaKernel
 
 KERNEL = CudaKernel(
     "flash_attention", "flash_attention.cu", "flash_attention_fwd",
@@ -68,7 +69,7 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"q must be (B, Sq, H, dh) and k, v (B, Sk, KV, dh) "
                          f"with H a multiple of KV, got {tuple(q.shape)} / "
                          f"{tuple(k.shape)} / {tuple(v.shape)}")
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return plain_gqa_attention(q, k, v, causal, scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
@@ -110,7 +111,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"q must be (N, Sq, dh) and k, v (N, Sk, dh), got "
                          f"{tuple(q.shape)} / {tuple(k.shape)} / "
                          f"{tuple(v.shape)}")
-    if q.device.type == "cpu" and k.device == q.device \
+    if q.device.type in PLAIN_DEVICES and k.device == q.device \
             and v.device == q.device:
         return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
     return gqa_attention(q[:, :, None], k[:, :, None], v[:, :, None],

@@ -12,8 +12,8 @@ thread and int4 stores. Its bound on the H100 is the M*N*4 output bytes
 or the M*N*W popcounts (16 per SM per clock). Only the unfused Eq. 6-8
 composition (`core.lsh.distance_matrix`) reaches it: the round selects
 through the fused kernels. The wrapper takes the plain version
-(`ref.hamming_all_pairs_ref`) for CPU tensors only; for a CUDA tensor it
-launches the kernel or raises.
+(`ref.hamming_all_pairs_ref`) for CPU and `meta` tensors only
+(`build.PLAIN_DEVICES`); for a CUDA tensor it launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.build import CudaKernel
+from repro_torch.kernels.build import PLAIN_DEVICES, CudaKernel
 
 KERNEL = CudaKernel(
     "hamming", "hamming.cu", "hamming_all_pairs",
@@ -40,7 +40,7 @@ def launch_path(m: int, n: int) -> str:
 def hamming_all_pairs(codes_a: torch.Tensor,
                       codes_b: torch.Tensor) -> torch.Tensor:
     """(M, W) x (N, W) int32 packed codes -> (M, N) int32 distances."""
-    if codes_a.device.type == "cpu":
+    if codes_a.device.type in PLAIN_DEVICES:
         return ref.hamming_all_pairs_ref(codes_a, codes_b)
     if codes_a.device.type != "cuda" or codes_b.device != codes_a.device:
         raise ValueError(f"unsupported devices {codes_a.device} / "

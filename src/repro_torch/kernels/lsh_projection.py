@@ -12,7 +12,8 @@ are never moved.
 The invariant: P is cut into S = P / L splits of L consecutive
 parameters; each sum runs one f32 chain `acc = fmaf(r, x, acc)` from 0
 in increasing p within a split, and the S split sums are added in order
-k = 0..S-1 from 0. L = `split_len(P)` depends on P alone, so a client's
+k = 0..S-1 from 0 in f64, rounded to f32 once at the end. L =
+`split_len(P)` depends on P alone, so a client's
 own sums equal its row of the batched sums bit for bit at any M, and a
 call gives the same sums every time. `ref.lsh_project_sums_split_order`
 is that order in plain tensor operations; the tests and `chip_smoke.py`
@@ -37,9 +38,16 @@ in PARTIAL_BYTES (512 MiB; groups of a multiple of 128 rows, at least
 sums do not depend on the rows launched with it, so the groups change
 no bit; each group is one launch of the C entry point.
 
+The single-client entry point also takes a uint32 row offset i0: x is
+then a shard of a longer vector that starts at global index i0, and its
+entry p is hashed as row i0 + p of R, mod 2^32, as the JAX
+`rademacher_block(i0, ...)` does (`core/lsh.py:sharded_lsh_code`). The
+offset moves no split boundary and changes no order; i0 = 0 is the
+unsharded call.
+
 Each wrapper takes its plain version (`ref.lsh_project_sums_batched_ref`,
-`ref.lsh_project_sums_ref`) for CPU tensors only; for a CUDA tensor it
-launches its kernel or raises.
+`ref.lsh_project_sums_ref`) for CPU and `meta` tensors only
+(`build.PLAIN_DEVICES`); for a CUDA tensor it launches its kernel or raises.
 """
 from __future__ import annotations
 
@@ -49,7 +57,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.build import CudaKernel
+from repro_torch.kernels.build import PLAIN_DEVICES, CudaKernel
 from repro_torch.kernels.ops import CHUNK, MASK32
 
 # Split lengths, longest first, and the SMs one split each should fill
@@ -72,7 +80,7 @@ KERNEL = CudaKernel(
 SINGLE_KERNEL = CudaKernel(
     "lsh_single", "lsh_projection.cu", "lsh_project_sums",
     [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-     ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p])
+     ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p])
 
 
 def split_len(p: int) -> int:
@@ -139,26 +147,30 @@ def _check(x: torch.Tensor, ndim: int, bits: int) -> None:
                          "reads it as float4)")
 
 
-def lsh_project_sums(x: torch.Tensor, seed: int, *,
-                     bits: int = 256) -> torch.Tensor:
-    """(P,) f32, P % CHUNK == 0 -> (bits,) f32: one client's sums."""
-    if x.device.type == "cpu":
-        return ref.lsh_project_sums_ref(x, seed, bits=bits)
+def lsh_project_sums(x: torch.Tensor, seed: int, *, bits: int = 256,
+                     row_offset: int = 0) -> torch.Tensor:
+    """(P,) f32, P % CHUNK == 0 -> (bits,) f32: one client's sums.
+    `row_offset`: the global index of x[0] when x is a shard of a longer
+    vector (its entry p is hashed as row row_offset + p of R, mod 2^32, as
+    the JAX `rademacher_block(i0, ...)` does); 0 for a whole vector."""
+    if x.device.type in PLAIN_DEVICES:
+        return ref.lsh_project_sums_ref(x, seed, bits=bits,
+                                        row_offset=row_offset)
     _check(x, 1, bits)
     p = x.shape[0]
     chunk, _, shape = split_plan(p, None, bits)
     partial = torch.empty(shape, dtype=torch.float32, device=x.device)
     out = torch.empty((bits,), dtype=torch.float32, device=x.device)
     SINGLE_KERNEL.launch(x.device, x.data_ptr(), p, chunk, bits,
-                         int(seed) & MASK32, partial.data_ptr(),
-                         out.data_ptr())
+                         int(seed) & MASK32, int(row_offset) & MASK32,
+                         partial.data_ptr(), out.data_ptr())
     return out
 
 
 def lsh_project_sums_batched(x: torch.Tensor, seed: int, *,
                              bits: int = 256) -> torch.Tensor:
     """(M, P) f32, P % CHUNK == 0 -> (M, bits) f32 projection sums."""
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return ref.lsh_project_sums_batched_ref(x, seed, bits=bits)
     _check(x, 2, bits)
     m, p = x.shape

@@ -5,7 +5,7 @@ CUDA kernel computes, with ordinary tensor operations. The CPU tests
 hold these against the JAX oracles; `chip_smoke.py` holds each CUDA
 kernel against its plain version on the card; the wrappers in
 `kernels/{lsh_projection,selection,exchange,hamming,flash_attention}.py`
-call them for CPU tensors only.
+call them for CPU and `meta` tensors only.
 """
 from __future__ import annotations
 
@@ -24,51 +24,59 @@ BLOCK_ROWS = 1024
 
 
 def lsh_project_sums_batched_ref(x2d: torch.Tensor, seed: int, *,
-                                 bits: int = 256) -> torch.Tensor:
+                                 bits: int = 256,
+                                 row_offset: int = 0) -> torch.Tensor:
     """(M, P) f32 -> (M, bits) f32 Eq. 5 projection sums x @ R with R the
-    on-the-fly +-1 matrix. R is generated BLOCK_P rows at a time and the
-    partial products accumulate in f32, so sums agree with the JAX
-    oracle's single dot to f32 rounding, not bitwise; the packed codes
-    agree except on sums within rounding of zero."""
+    on-the-fly +-1 matrix, its rows from `row_offset` on (mod 2^32). R is
+    generated BLOCK_P rows at a time and the partial products accumulate
+    in f32, so sums agree with the JAX oracle's single dot to f32
+    rounding, not bitwise; the packed codes agree except on sums within
+    rounding of zero."""
     m, p = x2d.shape
     x = x2d.to(torch.float32)
     out = torch.zeros((m, bits), dtype=torch.float32, device=x.device)
     for p0 in range(0, p, BLOCK_P):
         blk = min(BLOCK_P, p - p0)
-        r = rademacher_block(p0, blk, bits, seed, device=x.device)
+        r = rademacher_block(row_offset + p0, blk, bits, seed,
+                             device=x.device)
         out = out + x[:, p0:p0 + blk] @ r
     return out
 
 
-def lsh_project_sums_ref(x: torch.Tensor, seed: int, *,
-                         bits: int = 256) -> torch.Tensor:
+def lsh_project_sums_ref(x: torch.Tensor, seed: int, *, bits: int = 256,
+                         row_offset: int = 0) -> torch.Tensor:
     """(P,) f32 -> (bits,) f32: one client's Eq. 5 sums, the (1, P) case
-    of `lsh_project_sums_batched_ref`."""
-    return lsh_project_sums_batched_ref(x[None], seed, bits=bits)[0]
+    of `lsh_project_sums_batched_ref`; x[p] hashed as row row_offset + p
+    (mod 2^32), the kernel's shard of a longer vector."""
+    return lsh_project_sums_batched_ref(x[None], seed, bits=bits,
+                                        row_offset=row_offset)[0]
 
 
 def lsh_project_sums_split_order(x2d: torch.Tensor, seed: int, *,
-                                 bits: int = 256,
-                                 chunk: int) -> torch.Tensor:
+                                 bits: int = 256, chunk: int,
+                                 row_offset: int = 0) -> torch.Tensor:
     """(M, P) f32 -> (M, bits) f32 Eq. 5 sums in the LSH kernels' exact
     order: P cut into P / chunk splits, one f32 chain per split from 0 in
-    increasing p, then the splits added in order from 0. Since R = +-1,
+    increasing p, then the splits added in order from 0 in f64 and the
+    total rounded to f32 once. Since R = +-1,
     x * r is exact and `acc + x * r` rounds as the kernel's
     fmaf(r, x, acc) does, so this equals the CUDA kernels bit for bit.
-    Used by the tests and `chip_smoke.py` only; it holds a (S, M, bits)
-    accumulator and all of R at once."""
+    `row_offset` as in `lsh_project_sums_ref`. Used by the tests and
+    `chip_smoke.py` only; it holds a (S, M, bits) accumulator and all of
+    R at once."""
     m, p = x2d.shape
     s = p // chunk
     x = x2d.to(torch.float32).reshape(m, s, chunk)
-    r = rademacher_block(0, p, bits, seed, device=x.device).reshape(
+    r = rademacher_block(row_offset, p, bits, seed,
+                         device=x.device).reshape(
         s, chunk, bits)
     acc = torch.zeros((s, m, bits), dtype=torch.float32, device=x.device)
     for i in range(chunk):
         acc = acc + x[:, :, i].T[:, :, None] * r[:, i][:, None, :]
-    out = torch.zeros((m, bits), dtype=torch.float32, device=x.device)
+    out = torch.zeros((m, bits), dtype=torch.float64, device=x.device)
     for k in range(s):
-        out = out + acc[k]
-    return out
+        out = out + acc[k].to(torch.float64)
+    return out.to(torch.float32)
 
 
 @functools.lru_cache(maxsize=16)

@@ -47,8 +47,8 @@ bound 3*M*K*W integer operations or the M*K*4 bytes of candidate ids.
 
 Each wrapper takes its plain version (`ref.fused_select_ref`,
 `ref.fused_select_tiled_ref`, `ref.ann_select_ref`,
-`ref.ann_select_grouped_ref`) for CPU tensors only; for a CUDA tensor it
-launches its kernel or raises.
+`ref.ann_select_grouped_ref`) for CPU and `meta` tensors only
+(`build.PLAIN_DEVICES`); for a CUDA tensor it launches its kernel or raises.
 """
 from __future__ import annotations
 
@@ -57,7 +57,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.build import MAX_SHARED_BYTES, CudaKernel
+from repro_torch.kernels.build import (MAX_SHARED_BYTES, PLAIN_DEVICES,
+                                       CudaKernel)
 
 _EXACT_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
                + [ctypes.c_void_p] * 2)
@@ -206,7 +207,7 @@ def fused_select(codes: torch.Tensor, scores: torch.Tensor, *, bits: int,
     order, as `lax.top_k` gives them."""
     m, w = codes.shape
     lut = ref.selection_lut(w, bits, gamma, device=codes.device)
-    if codes.device.type == "cpu":
+    if codes.device.type in PLAIN_DEVICES:
         return ref.fused_select_ref(codes, scores, lut,
                                     num_neighbors=num_neighbors,
                                     use_lsh=use_lsh, use_rank=use_rank)
@@ -229,7 +230,7 @@ def fused_select_tiled(codes: torch.Tensor, scores: torch.Tensor, *,
     included."""
     m, w = codes.shape
     lut = ref.selection_lut(w, bits, gamma, device=codes.device)
-    if codes.device.type == "cpu":
+    if codes.device.type in PLAIN_DEVICES:
         return ref.fused_select_tiled_ref(codes, scores, lut,
                                           num_neighbors=num_neighbors,
                                           use_lsh=use_lsh, use_rank=use_rank)
@@ -260,7 +261,7 @@ def fused_select_ann(codes: torch.Tensor, scores: torch.Tensor,
     and weight -inf. Bit-equal to `ref.ann_select_ref`."""
     m, w = codes.shape
     lut = ref.selection_lut(w, bits, gamma, device=codes.device)
-    if codes.device.type == "cpu":
+    if codes.device.type in PLAIN_DEVICES:
         return ref.ann_select_ref(codes, scores, cand_ids, lut,
                                   num_neighbors=num_neighbors,
                                   use_lsh=use_lsh, use_rank=use_rank)
@@ -338,7 +339,7 @@ def fused_select_ann_grouped(codes: torch.Tensor, scores: torch.Tensor, cand,
     (too few finite candidates, -inf score columns) holds id 0."""
     m, w = codes.shape
     lut = ref.selection_lut(w, bits, gamma, device=codes.device)
-    if codes.device.type == "cpu":
+    if codes.device.type in PLAIN_DEVICES:
         return ref.ann_select_grouped_ref(codes, scores, cand, lut,
                                           num_neighbors=num_neighbors,
                                           use_lsh=use_lsh, use_rank=use_rank)

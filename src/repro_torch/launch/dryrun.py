@@ -1,0 +1,293 @@
+"""Dry run on the production layout (the port of `repro/launch/dryrun.py`):
+for each (architecture x input shape), what one device of the (16, 16)
+or (2, 16, 16) mesh would hold and compute. It counts; it compiles and
+allocates nothing: every tensor lies on the `meta` device (shapes and
+dtypes, no storage), where the kernel wrappers take their plain versions
+(`kernels.build.PLAIN_DEVICES`) because meta computes nothing.
+
+For each (arch, shape) it reports:
+  - bytes per device of the params, the AdamW state (train), the decode
+    cache (decode) and the inputs, exactly, from the spec trees
+    (`param_specs`, `sharding.opt_state_specs` / `cache_specs` /
+    `train_batch_specs`) after `_sanitize` (a dimension its axes do not
+    divide is replicated, as in the JAX dryrun), in bf16 (`DTYPE`; AdamW
+    keeps m and v in f32 and its step in int32);
+  - `input_specs` and `model_flops` (6ND train, 2ND prefill, 2NB decode,
+    N the active parameters), as the JAX dryrun has them;
+  - the FLOPs of one step, counted by `torch.utils.flop_counter.
+    FlopCounterMode` over the step on meta (train: loss, gradients,
+    clipping and the AdamW update; prefill; one decode step), at 1 and at
+    2 repetitions of the block pattern, and rebuilt as base + reps * body
+    (body = count(2) - count(1)), the JAX dryrun's "scan2". The counter
+    sees matrix products and attention (mm, bmm, addmm, baddbmm,
+    convolution, SDPA), not elementwise work. Time loops are counted
+    step by step (the port's sLSTM runs a Python loop), which JAX's
+    counts, once per `lax.scan` body, are not. FLOPs per device are the
+    global count over the mesh's devices: the partition is taken as even,
+    and work a real partition would replicate is not seen;
+  - roofline terms on one NVIDIA H100 SXM (NVIDIA's data sheet, as
+    `chip_smoke.py` uses them): compute_s = FLOPs per device at the bf16
+    tensor-core peak, memory_s = the bytes per device above read once
+    over HBM (a lower bound: activations are not counted).
+
+Collective bytes are not reported. The JAX dryrun parses them from XLA's
+compiled HLO (`collective_stats`); an eager PyTorch step has no compiled
+program to read them from, and the port does not estimate them.
+
+Usage:
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch minitron-4b \\
+        --shape train_4k [--multi-pod] [--json out.json]
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import math
+import sys
+import time
+import traceback
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.configs import SHAPES, get_config, list_archs, supports_shape
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.launch.mesh import axis_sizes, make_production_mesh
+from repro_torch.models.transformer import (init_cache, meta_params,
+                                            param_specs)
+from repro_torch.optim import adamw
+from repro_torch.sharding import (batch_axes, cache_specs, local_shape,
+                                  opt_state_specs, train_batch_specs)
+from repro_torch.train.steps import (make_prefill_step, make_serve_step,
+                                     make_train_step)
+from repro_torch.tree import P, tree_leaves, tree_map
+
+# one NVIDIA H100 SXM (data sheet): dense bf16 tensor-core FLOP/s and HBM
+# bytes/s, the constants of chip_smoke.py
+BF16_FLOP_PER_S = 989e12
+HBM_BYTES_PER_S = 3.35e12
+
+DTYPE = torch.bfloat16
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _sanitize(spec_tree, shape_tree, mesh):
+    """Drop sharding on dims not divisible by their mesh axes (e.g.
+    whisper's vocab 51,865 on a 16-way model axis, or batch 1 of
+    long_500k on the 16-way data axis): those dims are replicated.
+    `shape_tree`: tensors (or anything with `.shape`) in the specs' tree."""
+    sizes = axis_sizes(mesh)
+
+    def fix(spec, leaf):
+        shape = tuple(leaf.shape)
+        parts = list(spec) + [None] * (len(shape) - len(spec))
+        out = []
+        for dim, ax in zip(shape, parts):
+            if ax is None:
+                out.append(None)
+                continue
+            axes = ax if isinstance(ax, tuple) else (ax,)
+            div = math.prod(sizes[a] for a in axes)
+            out.append(ax if dim % div == 0 else None)
+        return P(*out)
+
+    return tree_map(fix, spec_tree, shape_tree)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig,
+                dtype=DTYPE) -> Dict[str, torch.Tensor]:
+    """Model inputs of the step at this shape (stubs included), on meta."""
+    b, s = shape.global_batch, shape.seq_len
+    if shape.mode == "decode":
+        specs = {"tokens": _meta((b,), torch.int32)}
+    else:
+        specs = {"tokens": _meta((b, s), torch.int32),
+                 "labels": _meta((b, s), torch.int32)}
+    if cfg.is_encdec:
+        specs["audio"] = _meta((b, cfg.encoder_seq_len, cfg.d_model), dtype)
+    if cfg.vision_tokens:
+        specs["vision"] = _meta((b, cfg.vision_tokens,
+                                 cfg.vision_dim or cfg.d_model), dtype)
+    return specs
+
+
+def model_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
+    """MODEL_FLOPS = 6*N*D (train) / 2*N*D (prefill) / 2*N*B (decode),
+    N = active params (MoE: routed only)."""
+    n = cfg.active_param_count()
+    if shape.mode == "train":
+        return 6.0 * n * shape.global_batch * shape.seq_len
+    if shape.mode == "prefill":
+        return 2.0 * n * shape.global_batch * shape.seq_len
+    return 2.0 * n * shape.global_batch          # decode: one token / seq
+
+
+def device_bytes(tree, spec_tree, mesh) -> int:
+    """Bytes one device holds of `tree` (tensors, e.g. on meta) laid out
+    by `spec_tree` after `_sanitize`."""
+    specs = tree_leaves(_sanitize(spec_tree, tree, mesh))
+    return sum(math.prod(local_shape(t.shape, s, mesh)) * t.element_size()
+               for t, s in zip(tree_leaves(tree), specs))
+
+
+def _window_override(cfg: ModelConfig, shape: ShapeConfig) -> int:
+    return (cfg.serve_window if shape.name == "long_500k"
+            and cfg.family == "dense" else 0)
+
+
+def _decode_cache(cfg, params, shape, batch):
+    win = _window_override(cfg, shape)
+    extra = {k: v for k, v in batch.items() if k != "tokens"}
+    cache_len = min(shape.seq_len, win) if win else shape.seq_len
+    return init_cache(cfg, params, shape.global_batch, cache_len, DTYPE,
+                      extra or None, window_override=win)
+
+
+def step_flops(cfg: ModelConfig, shape: ShapeConfig, *,
+               remat: str = "block") -> int:
+    """FlopCounterMode's count of one step at this config's depth, on
+    meta (the mesh plays no part: the global step)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    params = meta_params(cfg, DTYPE)
+    batch = input_specs(cfg, shape)
+    win = _window_override(cfg, shape)
+    if shape.mode == "train":
+        opt = adamw(1e-4, weight_decay=0.1)
+        state = opt.init(params)
+        step = make_train_step(cfg, opt, remat=remat)
+        args = (params, state, batch)
+    elif shape.mode == "prefill":
+        step = make_prefill_step(cfg)
+        args = (params, {k: v for k, v in batch.items() if k != "labels"})
+    else:
+        step = make_serve_step(cfg, window_override=win)
+        cache = _decode_cache(cfg, params, shape, batch)
+        args = (params, cache, batch["tokens"], shape.seq_len - 1)
+    with FlopCounterMode(display=False) as counter:
+        step(*args)
+    return counter.get_total_flops()
+
+
+def _with_reps(cfg: ModelConfig, reps: int) -> ModelConfig:
+    return dataclasses.replace(
+        cfg, num_layers=reps * len(cfg.block_pattern) + cfg.pattern_tail)
+
+
+def counted_flops(cfg: ModelConfig, shape: ShapeConfig, *,
+                  remat: str = "block") -> Dict[str, Any]:
+    """The step's FLOPs at full depth, rebuilt from counts at 1 and 2
+    pattern repetitions (base + reps * body); one count when the config
+    has fewer than two repetitions."""
+    reps = cfg.pattern_reps
+    if reps < 2:
+        total = step_flops(cfg, shape, remat=remat)
+        return {"flops": float(total), "counted_reps": [reps]}
+    one = step_flops(_with_reps(cfg, 1), shape, remat=remat)
+    two = step_flops(_with_reps(cfg, 2), shape, remat=remat)
+    body = two - one
+    return {"flops": float(one + (reps - 1) * body),
+            "body_flops": float(body), "base_flops": float(one - body),
+            "counted_reps": [1, 2]}
+
+
+def memory_per_device(cfg: ModelConfig, shape: ShapeConfig,
+                      mesh) -> Dict[str, int]:
+    """Bytes per device of params, optimizer state (train), decode cache
+    (decode) and inputs, from the spec trees on `mesh`."""
+    params = meta_params(cfg, DTYPE)
+    out = {"params": device_bytes(params, param_specs(cfg), mesh)}
+    batch = input_specs(cfg, shape)
+    if shape.mode == "train":
+        state = adamw(1e-4, weight_decay=0.1).init(params)
+        out["optimizer"] = device_bytes(state, opt_state_specs(cfg), mesh)
+    if shape.mode == "decode":
+        cache = _decode_cache(cfg, params, shape, batch)
+        out["cache"] = device_bytes(cache, cache_specs(cfg, mesh), mesh)
+        in_specs = {"tokens": P(batch_axes(mesh))}
+    else:
+        in_specs = train_batch_specs(cfg, mesh)
+    in_specs = {k: v for k, v in in_specs.items() if k in batch}
+    out["inputs"] = device_bytes({k: batch[k] for k in in_specs}, in_specs,
+                                 mesh)
+    out["total"] = sum(out.values())
+    return out
+
+
+def dryrun_one(arch: str, shape_name: str, *, multi_pod: bool = False,
+               remat: str = "block", verbose: bool = True) -> Dict[str, Any]:
+    cfg = get_config(arch)
+    shape = SHAPES[shape_name]
+    ok, why = supports_shape(cfg, shape)
+    if not ok:
+        return {"arch": arch, "shape": shape_name, "skipped": why}
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    chips = mesh.size()
+    t0 = time.time()
+    mem = memory_per_device(cfg, shape, mesh)
+    counts = counted_flops(cfg, shape, remat=remat)
+    flops = counts["flops"] / chips
+    mf = model_flops(cfg, shape)
+    terms = {"compute_s": flops / BF16_FLOP_PER_S,
+             "memory_s": mem["total"] / HBM_BYTES_PER_S}
+    result = {
+        "arch": arch, "shape": shape_name,
+        "mesh": "x".join(map(str, mesh.shape)), "chips": chips,
+        "remat": remat, "device": "meta",
+        "window_override": _window_override(cfg, shape),
+        "wall_s": round(time.time() - t0, 1),
+        "bytes_per_device": mem,
+        "flops_per_device": flops, **counts,
+        "collectives": None,
+        "roofline": {**terms, "dominant": max(terms, key=terms.get),
+                     "hardware": "NVIDIA H100 SXM (data sheet peaks)",
+                     "model_flops": mf,
+                     "useful_flop_frac": mf / counts["flops"]
+                     if counts["flops"] else 0.0},
+    }
+    if verbose:
+        print(json.dumps(result, indent=1, default=str), flush=True)
+    return result
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None, choices=sorted(SHAPES))
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--remat", default="block", choices=["none", "block"])
+    ap.add_argument("--json", default=None, help="write results to file")
+    args = ap.parse_args(argv)
+    if args.all:
+        combos = [(a, s) for a in list_archs() for s in SHAPES]
+    elif args.arch and args.shape:
+        combos = [(args.arch, args.shape)]
+    else:
+        ap.error("give --arch and --shape, or --all")
+
+    results = []
+    for a, s in combos:
+        layout = "2x16x16" if args.multi_pod else "16x16"
+        print(f"=== dryrun {a} x {s} ({layout}, meta) ===", flush=True)
+        try:
+            results.append(dryrun_one(a, s, multi_pod=args.multi_pod,
+                                      remat=args.remat))
+        except Exception as e:       # one combo's failure is its result
+            results.append({"arch": a, "shape": s, "error": repr(e)})
+            traceback.print_exc()
+        if args.json:
+            with open(args.json, "w") as f:
+                json.dump(results, f, indent=1, default=str)
+    n_err = sum("error" in r for r in results)
+    print(f"\n{len(results)} combos: {n_err} errors, "
+          f"{sum('skipped' in r for r in results)} skipped")
+    return 1 if n_err else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

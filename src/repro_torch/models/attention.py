@@ -41,6 +41,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, zeros
+from repro_torch.tree import P
 
 NEG_INF = -1e30
 
@@ -55,6 +56,24 @@ def attn_shapes(cfg: ModelConfig):
         p["bk"] = (kv * dh,)
         p["bv"] = (kv * dh,)
     return p
+
+
+def attn_specs(cfg: ModelConfig):
+    """Heads sharded over "model" (the projections' head columns)."""
+    p = {"wq": P(None, "model"), "wk": P(None, "model"),
+         "wv": P(None, "model"), "wo": P("model", None)}
+    if cfg.qkv_bias:
+        p["bq"] = P("model")
+        p["bk"] = P("model")
+        p["bv"] = P("model")
+    return p
+
+
+def attn_cache_specs(cfg: ModelConfig, batch_axes):
+    """A KV cache {"k", "v"} of (B, S, kv heads, dh): batch over
+    `batch_axes`, heads over "model"."""
+    s = P(batch_axes, None, "model", None)
+    return {"k": s, "v": s}
 
 
 ATTN_INIT = {"bq": zeros(), "bk": zeros(), "bv": zeros()}

@@ -11,6 +11,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.tree import P
 
 
 # ---------------------------------------------------------------------------
@@ -73,6 +74,12 @@ def norm_shapes(cfg: ModelConfig):
     return {"scale": (cfg.d_model,)}
 
 
+def norm_specs(cfg: ModelConfig):
+    if cfg.norm == "layernorm":
+        return {"scale": P(None), "bias": P(None)}
+    return {"scale": P(None)}
+
+
 NORM_INIT = {"scale": ones, "bias": zeros()}
 
 
@@ -120,6 +127,19 @@ def mlp_shapes(cfg: ModelConfig):
     return p
 
 
+def mlp_specs(cfg: ModelConfig):
+    """Tensor parallelism over "model": the FFN width is sharded."""
+    p = {}
+    if cfg.activation in GATED:
+        p["wg"] = P(None, "model")
+    p["wi"] = P(None, "model")
+    p["wo"] = P("model", None)
+    if cfg.mlp_bias:
+        p["bi"] = P("model")
+        p["bo"] = P(None)
+    return p
+
+
 MLP_INIT = {"bi": zeros(), "bo": zeros()}
 
 
@@ -146,6 +166,15 @@ def embed_shapes(cfg: ModelConfig):
         p["pos"] = (cfg.learned_pos_embed, cfg.d_model)
     if not cfg.tie_embeddings:
         p["lm_head"] = (cfg.d_model, cfg.vocab_size)
+    return p
+
+
+def embed_specs(cfg: ModelConfig):
+    p = {"tok": P("model", None)}
+    if cfg.learned_pos_embed:
+        p["pos"] = P(None, None)
+    if not cfg.tie_embeddings:
+        p["lm_head"] = P(None, "model")
     return p
 
 

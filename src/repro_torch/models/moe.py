@@ -1,32 +1,62 @@
 """Mixture-of-Experts FFN with top-k routing and capacity-bounded
-scatter/gather dispatch (the port of `repro/models/moe.py`, one dispatch
-group).
+scatter/gather dispatch (the port of `repro/models/moe.py`).
 
 Per call, over the T = B * S flattened tokens:
   1. router logits (T, E) in f32 -> softmax -> the top k experts and
      their renormalised weights. The top k come from a stable descending
      sort, so among equal probabilities the lower expert id wins, as
      `jax.lax.top_k` orders them (`torch.topk` promises no order on ties).
-  2. each slot's position in its expert by a stable sort over the (T*k,)
-     assignments (`_position_in_expert`); slots past the capacity C are
-     dropped, in token order, as in the JAX package.
-  3. kept slots are written into an (E*C + 1, D) buffer (the last row
-     takes the dropped slots and is discarded; a kept slot's row is
-     unique, so the write is a plain index copy, no atomics), the expert
-     FFNs run as batched GEMMs over E, and each token sums its k gathered
-     rows in slot order, the JAX scatter-add's order (an `index_add_`
-     would add them by atomics in no fixed order on the card).
+  2. the tokens are cut into G = `_NUM_GROUPS` groups of T / G (G = 1
+     when G does not divide T), each dispatched on its own with its own
+     capacity C (`set_dispatch_spec`; the JAX launcher sets G to the
+     data shards so that a group's scatter stays on its device; no
+     launcher of the port sets it yet).
+  3. in a group (`_dispatch_ffn`), each slot's position in its expert by
+     a stable sort over the (T*k,) assignments (`_position_in_expert`);
+     ids outside [0, E_here) (experts another rank owns) and slots past C
+     are dropped, in token order, as in the JAX package. Kept slots are
+     written into an (E_here*C + 1, D) buffer (the last row takes the
+     dropped slots and is discarded; a kept slot's row is unique, so the
+     write is a plain index copy, no atomics) and the expert FFNs run as
+     batched GEMMs over E_here.
+  4. each token sums its k gathered rows in slot order, the JAX
+     scatter-add's order (an `index_add_` would add them by atomics in
+     no fixed order on the card).
 
-The JAX package's grouped dispatch (`set_dispatch_spec`, `_NUM_GROUPS`
-> 1), `_dispatch_ffn` and the shard_map path `apply_moe_sharded` serve
-its mesh; they wait for the port's sharding (ROADMAP.md, A.6).
+Expert parallelism (`set_sharded_impl`, `apply_moe_sharded`; the JAX
+package's shard_map path): each rank of the mesh's "model" axis holds its
+slice of the weights by `moe_specs`. With E >= EXPERT_SHARD_MIN it holds
+E / n experts and dispatches only to them (global ids shifted by rank *
+E_here); with fewer experts it holds every expert's slice of the FFN
+width and dispatches every slot. The tokens are the same on every rank
+of the axis, and one `all_reduce` (sum) of the (T, D) output is the only
+collective on activations; the aux values are averaged over the ranks
+with one more all-reduce of two scalars, JAX's `pmean`. Forward only:
+the collective is not differentiated.
+
+The JAX `set_dispatch_spec` also takes the (G, E, C, D) buffer's
+partition spec for its SPMD partitioner; eager PyTorch has none, so the
+port's takes only G.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import GATED, _act
+from repro_torch.tree import P
+
+EXPERT_SHARD_MIN = 16
+
+# The dispatch group count G, set by a launcher (tests and single-card
+# runs keep the default).
+_NUM_GROUPS = 1
+
+
+def set_dispatch_spec(num_groups: int = 1):
+    global _NUM_GROUPS
+    _NUM_GROUPS = max(int(num_groups), 1)
 
 
 def moe_shapes(cfg: ModelConfig):
@@ -36,6 +66,19 @@ def moe_shapes(cfg: ModelConfig):
         p["wg"] = (e, d, f)
     p["wi"] = (e, d, f)
     p["wo"] = (e, f, d)
+    return p
+
+
+def moe_specs(cfg: ModelConfig):
+    """Experts over "model" from EXPERT_SHARD_MIN experts on, else each
+    expert's FFN width."""
+    if cfg.num_experts >= EXPERT_SHARD_MIN:
+        up, down = P("model", None, None), P("model", None, None)
+    else:
+        up, down = P(None, None, "model"), P(None, "model", None)
+    p = {"router": P(None, None), "wi": up, "wo": down}
+    if cfg.activation in GATED:
+        p["wg"] = up
     return p
 
 
@@ -72,48 +115,138 @@ def route(cfg: ModelConfig, p, xt: torch.Tensor):
     return probs, topw / topw.sum(-1, keepdim=True), topi
 
 
-def apply_moe(cfg: ModelConfig, p, x: torch.Tensor):
-    """x: (B, S, D) -> ((B, S, D), {"load_balance", "dropped_frac"})."""
-    b, s, d = x.shape
-    t = b * s
-    e, k = cfg.num_experts, cfg.experts_per_token
-    xt = x.reshape(t, d)
-    probs, topw, topi = route(cfg, p, xt)
+def _dispatch_ffn(cfg: ModelConfig, p, xt: torch.Tensor,
+                  e_ids: torch.Tensor, cap: int):
+    """Capacity-bounded dispatch and the expert FFNs of ONE group.
 
-    cap = _capacity(cfg, t)
-    flat_e = topi.reshape(-1)
-    flat_pos = _position_in_expert(flat_e)
-    keep = flat_pos < cap
-    dest = torch.where(keep, flat_e * cap + flat_pos, e * cap)
-    src = torch.arange(t, device=x.device).repeat_interleave(k)
-    buf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
+    xt: (T, D) tokens; e_ids: (T, k) ids into the E_here = p["wi"].shape[0]
+    experts of `p` (a rank's slice under expert parallelism). Ids outside
+    [0, E_here) are dropped (other ranks own them). Returns the (E_here*C
+    + 1, D) outputs (last row zero), each slot's row `dest` (the last row
+    where dropped) and the keep mask; slot j of token t is t * k + j."""
+    t, d = xt.shape
+    e_here = p["wi"].shape[0]
+    k = e_ids.shape[-1]
+    flat_e = e_ids.reshape(-1)
+    here = (flat_e >= 0) & (flat_e < e_here)
+    flat_pos = _position_in_expert(torch.where(here, flat_e, e_here))
+    keep = here & (flat_pos < cap)
+    dest = torch.where(keep, flat_e * cap + flat_pos, e_here * cap)
+    src = torch.arange(t, device=xt.device)[:, None].expand(t, k).reshape(-1)
+    buf = torch.zeros((e_here * cap + 1, d), dtype=xt.dtype, device=xt.device)
     buf.index_put_((dest,), xt[src])      # the overflow row is dropped
-    buf = buf[:-1].reshape(e, cap, d)
+    buf = buf[:-1].reshape(e_here, cap, d)
 
     h = torch.bmm(buf, p["wi"])
     if cfg.activation in GATED:
         h = _act(GATED[cfg.activation], torch.bmm(buf, p["wg"])) * h
     else:
         h = _act(cfg.activation, h)
-    out_buf = torch.cat([torch.bmm(h, p["wo"]).reshape(e * cap, d),
-                         torch.zeros((1, d), dtype=h.dtype, device=x.device)])
+    out_buf = torch.cat([torch.bmm(h, p["wo"]).reshape(e_here * cap, d),
+                         torch.zeros((1, d), dtype=h.dtype, device=xt.device)])
+    return out_buf, dest, keep
 
+
+def _combine(out_buf, dest, keep, topw, t: int, k: int) -> torch.Tensor:
+    """(T, D): each token's k gathered rows times their router weights
+    (0 where dropped), added in slot order, as JAX's scatter-add does."""
     gathered = (out_buf[dest] * (topw.reshape(-1, 1).to(out_buf.dtype)
                                  * keep[:, None].to(out_buf.dtype))
-                ).reshape(t, k, d)
+                ).reshape(t, k, -1)
     out = gathered[:, 0]
-    for j in range(1, k):                 # slot order, as JAX adds them
+    for j in range(1, k):
         out = out + gathered[:, j]
+    return out
 
-    # Switch-style load-balance terms
-    me = probs.mean(0)                    # router probability mass
-    ce = (topi[:, :1] == torch.arange(e, device=x.device)).to(
+
+def _load_balance(cfg: ModelConfig, probs, topi) -> torch.Tensor:
+    """Switch-style load-balance term: E * sum(router mass * top-1 share)."""
+    e = cfg.num_experts
+    me = probs.mean(0)
+    ce = (topi[:, :1] == torch.arange(e, device=probs.device)).to(
         torch.float32).mean(0)            # one-hot of the top expert
-    aux = {"load_balance": e * torch.sum(me * ce),
+    return e * torch.sum(me * ce)
+
+
+def apply_moe(cfg: ModelConfig, p, x: torch.Tensor):
+    """x: (B, S, D) -> ((B, S, D), {"load_balance", "dropped_frac"}).
+
+    Dispatch runs in G = `_NUM_GROUPS` independent groups of consecutive
+    tokens, each with its own capacity (G = 1 when G does not divide T)."""
+    b, s, d = x.shape
+    t = b * s
+    k = cfg.experts_per_token
+    g = _NUM_GROUPS if t % _NUM_GROUPS == 0 else 1
+    tg = t // g
+    xt = x.reshape(t, d)
+    probs, topw, topi = route(cfg, p, xt)
+
+    cap = _capacity(cfg, tg)
+    outs, keeps = [], []
+    for i in range(g):
+        rows = slice(i * tg, (i + 1) * tg)
+        out_buf, dest, keep = _dispatch_ffn(cfg, p, xt[rows], topi[rows],
+                                            cap)
+        outs.append(_combine(out_buf, dest, keep, topw[rows], tg, k))
+        keeps.append(keep)
+    out = outs[0] if g == 1 else torch.cat(outs)
+    keep = keeps[0] if g == 1 else torch.cat(keeps)
+    aux = {"load_balance": _load_balance(cfg, probs, topi),
            "dropped_frac": 1.0 - keep.to(torch.float32).mean()}
     return out.reshape(b, s, d), aux
 
 
+# ===========================================================================
+# expert parallelism over the mesh's "model" axis (the JAX shard_map path)
+# ===========================================================================
+_SHARDED = None
+
+
+def set_sharded_impl(group=None, *, aux_group=None):
+    """Enable (a process group given) or disable (None) the sharded path.
+
+    `group`: the ranks of the mesh's "model" axis, in axis order (e.g.
+    `mesh.get_group("model")`); `aux_group`: every rank of the mesh, over
+    which the aux values are averaged (default: `group`, the whole mesh
+    when its data axis has size 1)."""
+    global _SHARDED
+    _SHARDED = None if group is None else {
+        "group": group, "aux_group": group if aux_group is None
+        else aux_group}
+
+
 def moe_forward(cfg: ModelConfig, p, x: torch.Tensor):
     """Entry point of the transformer blocks."""
+    if _SHARDED is not None:
+        return apply_moe_sharded(cfg, p, x)
     return apply_moe(cfg, p, x)
+
+
+def apply_moe_sharded(cfg: ModelConfig, p, x: torch.Tensor):
+    """One rank's share of the layer. p: this rank's slice of the weights
+    by `moe_specs` (plain tensors: call `.to_local()` on DTensors); x:
+    (B, S, D), the same on every rank of the "model" group. Returns the
+    whole layer's output on every rank, and the JAX path's aux values."""
+    group, aux_group = _SHARDED["group"], _SHARDED["aux_group"]
+    b, s, d = x.shape
+    t = b * s
+    e, k = cfg.num_experts, cfg.experts_per_token
+    e_sharded = e >= EXPERT_SHARD_MIN
+    n_model = dist.get_world_size(group)
+    xt = x.reshape(t, d)
+    probs, topw, topi = route(cfg, p, xt)      # global expert ids
+
+    e_here = p["wi"].shape[0]
+    local_ids = topi - dist.get_rank(group) * e_here if e_sharded else topi
+    out_buf, dest, keep = _dispatch_ffn(cfg, p, xt, local_ids,
+                                        _capacity(cfg, t))
+    out = _combine(out_buf, dest, keep, topw, t, k)
+    dist.all_reduce(out, group=group)          # the one collective
+
+    stats = torch.stack([_load_balance(cfg, probs, topi),
+                         keep.to(torch.float32).sum()])
+    dist.all_reduce(stats, group=aux_group)
+    stats = stats / dist.get_world_size(aux_group)
+    slots = float(t * k) / (n_model if e_sharded else 1)
+    aux = {"load_balance": stats[0], "dropped_frac": 1.0 - stats[1] / slots}
+    return out.reshape(b, s, d).to(x.dtype), aux

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import uniform, zeros
+from repro_torch.tree import P
 
 _C = 8.0
 
@@ -34,6 +35,15 @@ def rglru_shapes(cfg: ModelConfig):
             "conv_w": (cfg.conv1d_width, w), "conv_b": (w,),
             "w_ra": (w, w), "b_ra": (w,), "w_rx": (w, w), "b_rx": (w,),
             "lam": (w,), "w_out": (w, d)}
+
+
+def rglru_specs(cfg: ModelConfig):
+    """The recurrence width W sharded over "model"."""
+    return {"w_in": P(None, "model"), "w_gate": P(None, "model"),
+            "conv_w": P(None, "model"), "conv_b": P("model"),
+            "w_ra": P(None, "model"), "b_ra": P("model"),
+            "w_rx": P(None, "model"), "b_rx": P("model"),
+            "lam": P("model"), "w_out": P("model", None)}
 
 
 # conv_w (cw, W) has fan-in cw, so the default draw is JAX's cw**-0.5
@@ -100,6 +110,10 @@ def init_rglru_state(cfg: ModelConfig, batch: int, dtype, device=None):
     return {"h": torch.zeros((batch, w), dtype=torch.float32, device=device),
             "conv": torch.zeros((batch, cfg.conv1d_width - 1, w),
                                 dtype=dtype, device=device)}
+
+
+def rglru_state_specs(cfg: ModelConfig, batch_axes):
+    return {"h": P(batch_axes, "model"), "conv": P(batch_axes, None, "model")}
 
 
 def rglru_decode(cfg: ModelConfig, p, x, state):

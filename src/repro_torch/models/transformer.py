@@ -29,9 +29,10 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe, rglru, xlstm
 from repro_torch.models.layers import (EMBED_INIT, MLP_INIT, NORM_INIT,
                                        apply_mlp, apply_norm, embed_shapes,
-                                       embed_tokens, init_leaves, lm_logits,
-                                       mlp_shapes, norm_shapes)
-from repro_torch.tree import tree_map
+                                       embed_specs, embed_tokens, init_leaves,
+                                       lm_logits, mlp_shapes, mlp_specs,
+                                       norm_shapes, norm_specs)
+from repro_torch.tree import P, tree_map
 
 Params = Dict[str, Any]
 
@@ -63,6 +64,54 @@ def _block_parts(cfg: ModelConfig, t: str, decoder: bool):
 
 def block_shapes(cfg: ModelConfig, t: str, *, decoder: bool = False):
     return {name: shapes for name, shapes, _ in _block_parts(cfg, t, decoder)}
+
+
+def block_specs(cfg: ModelConfig, t: str, *, decoder: bool = False):
+    """The partition specs of one block's params (`block_shapes`' tree)."""
+    p: Params = {"ln": norm_specs(cfg)}
+    if t in "ALX":
+        p["attn"] = attn.attn_specs(cfg)
+    elif t == "R":
+        p["rec"] = rglru.rglru_specs(cfg)
+    elif t == "S":
+        p["rec"] = xlstm.slstm_specs(cfg)
+    elif t == "M":
+        p["rec"] = xlstm.mlstm_specs(cfg)
+    if decoder and cfg.is_encdec:
+        p["ln_x"] = norm_specs(cfg)
+        p["xattn"] = attn.attn_specs(cfg)
+    if cfg.d_ff > 0:
+        p["ln2"] = norm_specs(cfg)
+        p["mlp"] = moe.moe_specs(cfg) if cfg.is_moe else mlp_specs(cfg)
+    return p
+
+
+def _add_layer_dim(spec_tree):
+    """Specs of a stacked block: its (reps,) axis is not sharded."""
+    return tree_map(lambda s: P(None, *s), spec_tree)
+
+
+def param_specs(cfg: ModelConfig) -> Params:
+    """The partition spec of every parameter, in `param_shapes`' tree."""
+    pattern = cfg.block_pattern
+    reps, tail = cfg.pattern_reps, cfg.pattern_tail
+    decoder = cfg.is_encdec
+    specs: Params = {"embed": embed_specs(cfg)}
+    if reps > 0:
+        specs["layers"] = tuple(
+            _add_layer_dim(block_specs(cfg, t, decoder=decoder))
+            for t in pattern)
+    specs["tail"] = tuple(block_specs(cfg, pattern[i], decoder=decoder)
+                          for i in range(tail))
+    specs["final_norm"] = norm_specs(cfg)
+    if cfg.is_encdec:
+        specs["encoder"] = {
+            "pos": P(None, None),
+            "layers": (_add_layer_dim(block_specs(cfg, "A")),),
+            "final_norm": norm_specs(cfg)}
+    if cfg.vision_tokens:
+        specs["vision_proj"] = P(None, "model")
+    return specs
 
 
 def _param_tree(cfg: ModelConfig, make) -> Params:
@@ -99,6 +148,14 @@ def param_shapes(cfg: ModelConfig) -> Params:
     structure."""
     return _param_tree(cfg, lambda shapes, rules, lead: {
         k: torch.Size((*lead, *s)) for k, s in shapes.items()})
+
+
+def meta_params(cfg: ModelConfig, dtype=torch.float32) -> Params:
+    """Params on the `meta` device: shapes and dtypes, no storage (the
+    dryrun's counting and its FLOP count run on these)."""
+    return _param_tree(cfg, lambda shapes, rules, lead: {
+        k: torch.empty((*lead, *s), dtype=dtype, device="meta")
+        for k, s in shapes.items()})
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator,

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import normal, zeros
+from repro_torch.tree import P
 
 NEG_INF = -1e30
 M_INIT = -30.0                  # the stabiliser's start: exp(m) ~ 0
@@ -33,6 +34,12 @@ def slstm_shapes(cfg: ModelConfig):
     return {"w": (4, d, d),                # i, f, z, o input weights
             "r": (4, h, dh, dh),           # block-diagonal recurrence
             "b": (4, d), "w_out": (d, d)}
+
+
+def slstm_specs(cfg: ModelConfig):
+    """Replicated: the recurrence mixes every unit each step."""
+    return {"w": P(None, None, None), "r": P(None, None, None, None),
+            "b": P(None, None), "w_out": P(None, None)}
 
 
 SLSTM_INIT = {"b": zeros()}
@@ -77,6 +84,11 @@ def init_slstm_state(cfg: ModelConfig, batch: int, device=None):
     return (z, z.clone(), z.clone(), torch.full_like(z, M_INIT))
 
 
+def slstm_state_specs(cfg: ModelConfig, batch_axes):
+    s = P(batch_axes, None)
+    return (s, s, s, s)
+
+
 def slstm_decode(cfg: ModelConfig, p, x, state):
     """x: (B,1,D) -> (out (B,1,D), new state)."""
     wx = torch.einsum("bd,gde->gbe", x[:, 0].to(torch.float32),
@@ -96,6 +108,13 @@ def mlstm_shapes(cfg: ModelConfig):
             "w_q": (di, di), "w_k": (di, di), "w_v": (di, di),
             "w_if": (di, 2 * cfg.num_heads), "b_if": (2 * cfg.num_heads,),
             "w_down": (di, d)}
+
+
+def mlstm_specs(cfg: ModelConfig):
+    return {"w_up": P(None, None), "w_z": P(None, None), "w_q": P(None, None),
+            "w_k": P(None, None), "w_v": P(None, None),
+            "w_if": P(None, None), "b_if": P(None),
+            "w_down": P(None, None)}
 
 
 MLSTM_INIT = {"w_if": normal(0.01), "b_if": zeros(torch.float32)}
@@ -180,6 +199,12 @@ def init_mlstm_state(cfg: ModelConfig, batch: int, device=None):
     return {"C": torch.zeros((batch, h, dh, dh), **f32),
             "n": torch.zeros((batch, h, dh), **f32),
             "m": torch.full((batch, h), M_INIT, **f32)}
+
+
+def mlstm_state_specs(cfg: ModelConfig, batch_axes):
+    return {"C": P(batch_axes, None, None, None),
+            "n": P(batch_axes, None, None),
+            "m": P(batch_axes, None)}
 
 
 def mlstm_decode(cfg: ModelConfig, p, x, state):

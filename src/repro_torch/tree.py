@@ -6,10 +6,32 @@ package's leaf order.
 order, `None` a subtree without leaves. The order matters where leaves
 are combined (the global-norm sum) and where they are named (checkpoint
 keys); `tree_map` keeps each dict's own key order.
+
+`P`, the port's partition spec, is a tuple that every function here takes
+as one leaf, as the JAX package's spec trees treat `PartitionSpec`.
 """
 from __future__ import annotations
 
 from typing import Any, Iterator, List, Tuple
+
+
+class P(tuple):
+    """A partition spec (the port's `jax.sharding.PartitionSpec`): per
+    dimension None (replicated), a mesh axis name, or a tuple of axis
+    names (sharded over their product, the first outermost); a tuple of
+    one name is that name, as JAX normalises it. Dimensions past its
+    length are replicated. A leaf of every tree function here."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, tuple(
+            p[0] if isinstance(p, tuple) and len(p) == 1 else p
+            for p in parts))
+
+    def __getnewargs__(self):
+        return tuple(self)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
 
 
 def _is_namedtuple(tree) -> bool:
@@ -20,6 +42,8 @@ def tree_map(fn, tree, *rest):
     """fn over the leaves of `tree` and the same leaves of `rest`."""
     if tree is None:
         return None
+    if isinstance(tree, P):
+        return fn(tree, *rest)
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
@@ -37,7 +61,9 @@ def tree_paths(tree, path: Tuple[str, ...] = ()) -> Iterator[
     a sequence item (the JAX checkpoint store's key segments)."""
     if tree is None:
         return
-    if isinstance(tree, dict):
+    if isinstance(tree, P):
+        yield path, tree
+    elif isinstance(tree, dict):
         for k in sorted(tree):
             yield from tree_paths(tree[k], path + (f"d:{k}",))
     elif _is_namedtuple(tree):
@@ -62,6 +88,8 @@ def tree_unflatten(like, leaves):
     def build(t):
         if t is None:
             return None
+        if isinstance(t, P):
+            return next(it)
         if isinstance(t, dict):
             built = {k: build(t[k]) for k in sorted(t)}
             return {k: built[k] for k in t}

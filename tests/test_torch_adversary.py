@@ -18,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import intra_op_threads  # noqa: F401 (autouse)
+
 import repro.core.adversary as jadv
 import repro.core.attacks as jattacks
 import repro.core.rounds as jrounds

@@ -27,6 +27,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import intra_op_threads  # noqa: F401 (autouse)
+
 import repro.configs.paper_models as jcfg
 from repro.core import ann as jann
 from repro.core import backends as jbackends

@@ -22,6 +22,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import intra_op_threads  # noqa: F401 (autouse)
+
 from repro.core import ann as jann
 from repro.kernels import ref as jref
 

@@ -19,6 +19,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import intra_op_threads  # noqa: F401 (autouse)
+
 import repro.core.baselines as jbaselines
 import repro.core.rounds as jrounds
 from repro.core import init_state as jax_init_state

@@ -23,6 +23,8 @@ import ctypes
 import pytest
 import torch
 
+from torch_threads import intra_op_threads  # noqa: F401 (autouse)
+
 from repro_torch.kernels import (exchange, flash_attention, hamming,
                                  lsh_projection, ops, ref, selection)
 
@@ -606,6 +608,45 @@ def test_lsh_row_groups_equal_one_launch(cuda, monkeypatch, m, p):
     assert torch.equal(k, one)
     assert torch.equal(k, ref.lsh_project_sums_split_order(
         x, 9, bits=256, chunk=lsh_projection.split_len(p)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [4096, 270_336])
+@pytest.mark.parametrize("offset", [0, 2048 * 37, 2 ** 31 + 4096,
+                                    2 ** 32 - 5000, 3_142_732_800])
+def test_lsh_single_row_offset_equals_the_split_order_twin(cuda, p, offset):
+    """The row offset hashes x[i] as row offset + i (mod 2^32): bit for
+    bit the order twin's sums at that offset, and the plain version's
+    within tolerance."""
+    x = torch.randn(p, generator=_gen(p + offset % 97), device=cuda) * 0.05
+    k = lsh_projection.lsh_project_sums(x, 4, bits=256, row_offset=offset)
+    twin = ref.lsh_project_sums_split_order(
+        x[None], 4, bits=256, chunk=lsh_projection.split_len(p),
+        row_offset=offset)[0]
+    assert torch.equal(k, twin)
+    pl = ref.lsh_project_sums_ref(x, 4, bits=256, row_offset=offset)
+    assert bool(((k - pl).abs() <= 1e-5 * (pl.abs() + x.norm())).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("start", [2048 * 200, 2 ** 31 + 2048 * 3])
+def test_lsh_single_offset_equals_the_vector_with_a_zero_prefix(cuda, start):
+    """A shard at offset a gives, bit for bit, the sums of the whole
+    vector that is zero outside it (zeros add exact zeros, and both split
+    at 2,048). At a = 2^31 + 6,144 the unsharded launch runs past P =
+    2^31: its x offsets and hash rows are 64-bit / wrapped correctly."""
+    n = 270_336
+    y = torch.randn(n, generator=_gen(start % 1009), device=cuda) * 0.05
+    p = start + n + 2048 * 5
+    x = torch.zeros(p, device=cuda)
+    x[start:start + n] = y
+    assert lsh_projection.split_len(p) == lsh_projection.split_len(n)
+    whole = lsh_projection.lsh_project_sums(x, 6, bits=256)
+    del x
+    shard = lsh_projection.lsh_project_sums(y, 6, bits=256, row_offset=start)
+    assert torch.equal(whole, shard)
+    assert torch.equal(shard, ref.lsh_project_sums_split_order(
+        y[None], 6, bits=256, chunk=2048, row_offset=start)[0])
 
 
 @pytest.mark.cuda

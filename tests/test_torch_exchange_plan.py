@@ -23,6 +23,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import intra_op_threads  # noqa: F401 (autouse)
+
 from repro.kernels import ref as jref
 
 from repro_torch.core import backends

@@ -16,6 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import intra_op_threads  # noqa: F401 (autouse)
+
 from repro.core import chain as jchain
 from repro.core import faults as jfaults
 from repro.service import transport as jtransport

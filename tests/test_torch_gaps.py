@@ -26,6 +26,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import intra_op_threads  # noqa: F401 (autouse)
+
 import repro.configs.paper_models as jcfg
 from repro.core import distill as jdistill
 from repro.core import exchange as jexchange

@@ -9,6 +9,8 @@ from pathlib import Path
 import pytest
 import torch
 
+from torch_threads import intra_op_threads, worker_env  # noqa: F401
+
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = ("jax", "jaxlib", "repro")
@@ -62,7 +64,7 @@ print("LOADED", bad)
 
 
 def test_port_runs_without_loading_jax_or_repro():
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **worker_env())
     out = subprocess.run([sys.executable, "-c", _CHILD], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr

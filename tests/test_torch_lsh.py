@@ -26,6 +26,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import intra_op_threads  # noqa: F401 (autouse)
+
 from repro.configs.paper_models import ClientModelConfig as JaxModelConfig
 from repro.core import lsh as jlsh
 from repro.core import neighbor as jneighbor

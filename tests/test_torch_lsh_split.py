@@ -2,7 +2,7 @@
 
 The CUDA kernels (`csrc/lsh_projection.cu`) cut P into P / L splits of
 L = `lsh_projection.split_len(P)` parameters, run one f32 chain per
-split in increasing p and add the splits in order.
+split in increasing p and add the splits in order in f64.
 `ref.lsh_project_sums_split_order` is that order in plain tensor
 operations; `tests/test_torch_cuda.py` and `chip_smoke.py` hold the
 kernels to it with `torch.equal` on the card. Here it is held:
@@ -22,6 +22,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+from torch_threads import intra_op_threads  # noqa: F401 (autouse)
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
@@ -141,18 +143,20 @@ def test_split_order_row_is_the_single_row(m, p, bits):
 
 @pytest.mark.parametrize("chunk", [2048, 128])
 def test_split_order_is_a_sequential_f32_loop(chunk):
-    """One chain per split in increasing p from 0, then the splits added
-    in order from 0, every step rounded to f32; at chunk = P this is one
-    plain sequential loop."""
+    """One chain per split in increasing p from 0, every step rounded to
+    f32, then the splits added in order from 0 in f64 and the total
+    rounded to f32 once; at chunk = P this is one plain sequential f32
+    loop."""
     m, p, bits, seed = 2, 2048, 32, 2 ** 31 + 1
     x = _x(m, p, seed=3)
     r = np.asarray(jax_rademacher(0, p, bits, seed))
-    out = np.zeros((m, bits), np.float32)
+    out = np.zeros((m, bits), np.float64)
     for k in range(p // chunk):
         acc = np.zeros((m, bits), np.float32)
         for i in range(k * chunk, (k + 1) * chunk):
             acc = acc + x[:, i:i + 1] * r[i][None, :]
-        out = out + acc
+        out = out + acc.astype(np.float64)
     s = ref.lsh_project_sums_split_order(_t(x), seed, bits=bits,
                                          chunk=chunk).numpy()
-    assert s.dtype == np.float32 and np.array_equal(s, out)
+    assert s.dtype == np.float32 and np.array_equal(
+        s, out.astype(np.float32))

@@ -18,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import intra_op_threads  # noqa: F401 (autouse)
+
 from repro import configs as jconfigs
 from repro.models import moe as jmoe
 

@@ -24,6 +24,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import intra_op_threads  # noqa: F401 (autouse)
+
 import repro.configs.paper_models as jcfg
 import repro.data.federated as jdata
 from repro.core import exchange_phase as jax_exchange_phase

@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import intra_op_threads  # noqa: F401 (autouse)
+
 from repro import configs as jconfigs
 from repro.models import rglru as jrglru
 from repro.models import xlstm as jxlstm

@@ -24,6 +24,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import intra_op_threads  # noqa: F401 (autouse)
+
 from repro.kernels import ref as jref
 from repro.kernels.selection import fused_select as jax_select
 from repro.kernels.selection import fused_select_tiled as jax_select_tiled

@@ -24,6 +24,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import intra_op_threads  # noqa: F401 (autouse)
+
 import repro.configs.paper_models as jcfg
 from repro.core import init_state as jax_init_state
 from repro.core.neighbor import select_partners as jax_select_partners

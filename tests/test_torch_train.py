@@ -32,6 +32,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import intra_op_threads  # noqa: F401 (autouse)
+
 from repro.checkpoint import store as jckpt
 from repro import configs as jconfigs
 from repro.data import synthetic as jsynthetic

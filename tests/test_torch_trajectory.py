@@ -15,6 +15,8 @@ import dataclasses
 import jax
 import numpy as np
 
+from torch_threads import intra_op_threads  # noqa: F401 (autouse)
+
 from repro.core import evaluate as jax_evaluate
 from repro.core import (init_state as jax_init_state,
                         make_wpfed_round as jax_make_round)
