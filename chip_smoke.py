@@ -188,9 +188,27 @@
    at M = 10, 1,024 with N = 200 and 46,489; tiled at 10 and 65,536;
    grouped ANN at 10 and 65,536 clustered; ids compared on every rank)
    and both exchange kernels on rows with N-1 of N and all ranks masked.
-8. Prints {"phase": "seconds", ...}, the wall seconds of each section
+8. The analysis gate on the card (`analysis_path`, before the service):
+   `repro_torch.analysis.__main__.run_gate("cuda")`: every registry
+   entry launched once at its contract shape and held against its plain
+   twin on the card at its exactness class, the three shared-memory
+   mirrors (`select_smem_bytes`, `ann_smem_bytes`,
+   `fused_exchange_smem_bytes`) equal to their Python functions at every
+   entry point, the 16 taint targets clean on the card through the
+   kernel backends (the LSH, one-shot selection and one-shot exchange
+   kernels launched during that run, and their wrappers' label rule
+   fired), the completeness walk and the host-sync lint clean. Then the
+   probe: the exchange kernel's outputs on a web that did not pass
+   `public_ref_logits` carry client-params and client-data, which only
+   the wrapper rule can give them; and the three torch leak fixtures,
+   each exactly its one finding on the card. Any finding fails the run.
+   Prints the gate's seconds per part, its finding counts, and the 16
+   targets' seconds run plainly and under the check (warm, the same
+   process).
+9. Prints {"phase": "seconds", ...}, the wall seconds of each section
    (build, kernel checks, main paths, profiles, attack, baselines,
-   serve, families, train, sharding, service), then {"kernels": [...]}
+   serve, families, train, sharding, analysis, service), then
+   {"kernels": [...]}
    for every kernel of the paths driven (the
    per-row ANN kernel, which no path takes since the route took the
    grouped one, is checked in 2 only), then, last,
@@ -2529,6 +2547,108 @@ def service_path(torch, kernels):
     return launches
 
 
+LEAK_FIXTURES = (("leak_announce_field.py", "taint-sink"),
+                 ("leak_metric_tap.py", "taint-host-read"),
+                 ("leak_served_private.py", "taint-sink"))
+
+
+def timed_targets(torch, targets, run):
+    """Seconds of `run(target)` over every target, the card synchronised
+    before each clock read."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in targets:
+        run(t)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def analysis_path(torch):
+    """The analysis gate on the card (section 8 of the docstring); raises
+    on any finding."""
+    from repro_torch.analysis import taint
+    from repro_torch.analysis.__main__ import check_fixture_file, run_gate
+    from repro_torch.core import protocol
+    from repro_torch.kernels import exchange
+
+    t0 = time.perf_counter()
+    gate = run_gate("cuda")
+    gate_s = time.perf_counter() - t0
+    bad = [str(f) for f in gate["findings"]]
+    if bad:
+        raise AssertionError("the analysis gate found:\n" + "\n".join(bad))
+    if sorted(gate["contracts"]) != sorted(gate["entries"]) or any(
+            c["launches"] < 1 for c in gate["contracts"].values()):
+        raise AssertionError(f"contract launches: {gate['contracts']}")
+    if gate["estimator_checks"] < 1:
+        raise AssertionError("no shared-memory mirror was compared")
+    path = {"lsh_projection", "selection", "exchange"}
+    launched = {k for k, n in gate["taint_launches"].items() if n}
+    if not path <= launched or not path <= set(gate["taint_kernels"]):
+        raise AssertionError(
+            f"the taint run launched {gate['taint_launches']} and fired the "
+            f"wrapper rule of {gate['taint_kernels']}, not every kernel of "
+            f"{sorted(path)}")
+
+    # the wrapper rule is what labels a ctypes kernel's outputs
+    t = taint._tiny("cuda")
+    fed, apply_fn = t["fed"], t["apply_fn"]
+
+    def probe(st, d):
+        sel = protocol.select_phase(st, fed)
+        own = torch.stack([apply_fn(protocol.client(st.params, i),
+                                    d["x_ref"][i]) for i in range(t["m"])])
+        return exchange.fused_exchange(own, own[sel.ids.long()],
+                                       d["y_ref"], sel.sel_mask)
+
+    before = exchange.KERNEL.launches
+    run = taint.run_labelled("exchange-probe", probe, (t["state"], t["data"]),
+                             (taint._fed_labels(t["state"]),
+                              taint._data_labels(t["data"])))
+    probe_labels = sorted(run.engine.of(run.out))
+    if run.findings or exchange.KERNEL.launches - before != 1 or not {
+            taint.SRC_PARAMS, taint.SRC_DATA} <= set(probe_labels):
+        raise AssertionError(
+            f"exchange probe: labels {probe_labels}, findings "
+            f"{[str(f) for f in run.findings]}, launches "
+            f"{exchange.KERNEL.launches - before}")
+
+    leaks = {}
+    for fname, rule in LEAK_FIXTURES:
+        fs = check_fixture_file(
+            str(ROOT / "tests" / "torch_analysis_fixtures" / fname), "cuda")
+        leaks[fname] = [f.rule for f in fs]
+        if leaks[fname] != [rule]:
+            raise AssertionError(f"{fname}: {[str(f) for f in fs]}, not one "
+                                 f"{rule}")
+
+    # the 16 targets run plainly and under the check, both warm
+    targets = taint.head_targets("cuda")
+
+    def plain(target):
+        fn, args, _ = target.build()
+        fn(*args)
+
+    found = []
+    plain_s = timed_targets(torch, targets, plain)
+    checked_s = timed_targets(
+        torch, targets, lambda t: found.extend(taint.check_target(t)))
+    if found:
+        raise AssertionError(f"second taint run: {[str(f) for f in found]}")
+    emit({"phase": "analysis", "gate_s": gate_s,
+          "seconds": gate["seconds"], "findings": len(gate["findings"]),
+          "entries": len(gate["entries"]),
+          "contracts": gate["contracts"],
+          "estimator_checks": gate["estimator_checks"],
+          "taint_targets": len(gate["taint_targets"]),
+          "taint_launches": gate["taint_launches"],
+          "taint_kernels": gate["taint_kernels"],
+          "host_ok": len(gate["host_ok"]), "probe_labels": probe_labels,
+          "leak_findings": leaks, "targets_plain_s": plain_s,
+          "targets_checked_s": checked_s,
+          "taint_slowdown": checked_s / plain_s})
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2803,14 +2923,19 @@ def main() -> int:
           **sharding_path(torch, kernels)})
     lap("sharding")
 
-    # 8. the continuous service: churn, gossip budgets, faults, a crash
+    # 8. the analysis gate: contract launches, shared-memory mirrors, the
+    # taint targets through the kernels, the leak fixtures
+    analysis_path(torch)
+    lap("analysis")
+
+    # 9. the continuous service: churn, gossip budgets, faults, a crash
     # and a resume, then personalized serving (last: it holds cuDNN to
     # deterministic algorithms for the rest of the process)
     service_path(torch, kernels)
     lap("service")
     emit({"phase": "seconds", **laps})
 
-    # 9. every ported kernel
+    # 10. every ported kernel
     meta = {
         "lsh_projection": ("src/repro_torch/kernels/csrc/lsh_projection.cu",
                            "src/repro/kernels/lsh_projection.py:134"),

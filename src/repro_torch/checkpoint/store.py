@@ -44,7 +44,7 @@ def _flatten(tree) -> dict:
         t = leaf.detach()
         if t.dtype == torch.bfloat16:
             t = t.to(torch.float32)
-        out[_SEP.join(path)] = t.cpu().numpy()
+        out[_SEP.join(path)] = t.cpu().numpy()  # analysis: host-ok to the .npz
     return out
 
 

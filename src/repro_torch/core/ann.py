@@ -243,14 +243,15 @@ def bucket_candidates(codes: torch.Tensor, scores: torch.Tensor, *, seed,
 
 def occupancy_stats(c: AnnCandidates) -> dict:
     """Host-side candidate accounting: K, buckets, occupancy, drops."""
-    counts = c.counts.cpu()
-    nonempty = counts[counts > 0].to(torch.float64)
+    counts = c.counts.tolist()  # analysis: host-ok occupancy report
+    dropped = c.dropped.item()  # analysis: host-ok occupancy report
+    nonempty = [n for n in counts if n > 0]
     return {
         "k": int(c.ids.shape[1]),
-        "buckets": int(counts.numel()),
-        "nonempty_buckets": int(nonempty.numel()),
-        "mean_occupancy": round(float(nonempty.mean()), 2)
-        if nonempty.numel() else 0.0,
-        "max_occupancy": int(counts.max()) if counts.numel() else 0,
-        "dropped_candidates": int(c.dropped),
+        "buckets": len(counts),
+        "nonempty_buckets": len(nonempty),
+        "mean_occupancy": round(sum(nonempty) / len(nonempty), 2)
+        if nonempty else 0.0,
+        "max_occupancy": max(counts) if counts else 0,
+        "dropped_candidates": dropped,
     }

@@ -63,7 +63,7 @@ def _flag(m: int, value: bool, like: torch.Tensor) -> torch.Tensor:
 def _peer_mean(apply_fn, params, x_ref, ids: torch.Tensor) -> torch.Tensor:
     """(M, R, C): for each client i the mean of its peers' (ids[i])
     outputs on its own reference set x_ref[i]."""
-    rows = ids.tolist()
+    rows = ids.tolist()  # analysis: host-ok ids index the forward loop
     return torch.stack([
         torch.stack([apply_fn(client(params, j), x_ref[i])
                      for j in rows[i]]).mean(0)

@@ -22,13 +22,14 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.analysis.privacy import declassifier
 from repro_torch.kernels.ops import MASK32
 
 
 def canonical_ranking_bytes(ranking) -> bytes:
     """int64 bytes of the ranking vector plus its shape's repr."""
     if isinstance(ranking, torch.Tensor):
-        ranking = ranking.detach().cpu().numpy()
+        ranking = ranking.detach().cpu().numpy()  # analysis: host-ok ledger
     arr = np.asarray(ranking, np.int64)
     return arr.tobytes() + arr.shape.__repr__().encode()
 
@@ -40,6 +41,11 @@ def sha256_commit(ranking, salt: int = 0) -> str:
     return h.hexdigest()
 
 
+@declassifier(
+    name="commitment", paper_eq="Eq. 9-10 (§3.6 commit-and-reveal)",
+    justification="a one-way hash of an already-releasable ranking "
+                  "vector: binding for the reveal check, disclosing "
+                  "nothing beyond the ranking it commits to")
 def fnv1a_commit(ranking: torch.Tensor, salt: int = 0) -> torch.Tensor:
     """(..., N) int32 rankings -> (...,) int64 commitments in [0, 2^32),
     equal to the JAX package's uint32 `fnv1a_commit` values."""
@@ -154,7 +160,7 @@ def lsh_code_hex(code) -> str:
     """Hex of a packed code's uint32 words (int32 bit patterns in the
     port), as the JAX package writes it."""
     if isinstance(code, torch.Tensor):
-        code = code.detach().cpu().numpy()
+        code = code.detach().cpu().numpy()  # analysis: host-ok ledger hex
     return np.asarray(code).astype(np.int32).view(np.uint32).tobytes().hex()
 
 

@@ -20,15 +20,23 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.analysis.privacy import declassifier
 from repro_torch.core import backends
 from repro_torch.kernels import exchange, ref
 
 
+@declassifier(
+    name="public-ref-logits", paper_eq="Eq. 2-3 (§3.1 logit exchange)",
+    justification=("the paper's designated exchange artifact: neighbor "
+                   "outputs on the (public or mutually shared) reference "
+                   "set — the knowledge-transfer channel the protocol "
+                   "defines as releasable in place of raw parameters"))
 def public_ref_logits(neighbor_logits: torch.Tensor) -> torch.Tensor:
     """The (M, N, R, C) neighbour-logit web as the exchanged artifact:
-    the identity. The JAX package marks the protocol's one sanctioned
-    release here for its taint analysis; the port keeps the name so the
-    exchange phase reads the same."""
+    the identity at runtime. `protocol.exchange_phase` routes every web
+    through it, so the taint check (`repro_torch.analysis.taint`) treats
+    the gathered logits as disclosed by design and checks the rest of
+    the round downstream of this one sanctioned release."""
     return neighbor_logits
 
 

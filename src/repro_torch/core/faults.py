@@ -167,15 +167,15 @@ def fault_scalars(pf: PeriodFaults, announcing) -> Dict[str, float]:
     straggling slot injects nothing."""
     announcing = np.asarray(announcing, bool)
     return {
-        "fault_stragglers": float((pf.stragglers & announcing).sum()),
-        "fault_dropped": float((pf.drop & announcing
-                                & ~pf.stragglers).sum()),
-        "fault_delayed": float((pf.delay & announcing
-                                & ~pf.stragglers).sum()),
-        "fault_corrupt": float((pf.corrupt & announcing
-                                & ~pf.stragglers).sum()),
-        "fault_duplicates": float((pf.duplicate & announcing
-                                   & ~pf.stragglers).sum()),
+        "fault_stragglers": float(np.sum(pf.stragglers & announcing)),
+        "fault_dropped": float(np.sum(pf.drop & announcing
+                                      & ~pf.stragglers)),
+        "fault_delayed": float(np.sum(pf.delay & announcing
+                                      & ~pf.stragglers)),
+        "fault_corrupt": float(np.sum(pf.corrupt & announcing
+                                      & ~pf.stragglers)),
+        "fault_duplicates": float(np.sum(pf.duplicate & announcing
+                                         & ~pf.stragglers)),
         "fault_publish_retries": float(pf.publish_failures),
         "fault_fetch_retries": float(pf.fetch_failures),
         "degraded_round": float(

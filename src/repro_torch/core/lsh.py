@@ -19,6 +19,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from repro_torch.analysis.privacy import declassifier
 from repro_torch.core import backends
 from repro_torch.kernels import lsh_projection, ops
 
@@ -30,6 +31,12 @@ def client_lsh_code(params: Dict[str, torch.Tensor], seed: int,
     return ops.lsh_code(params, seed, bits=bits, use_kernel=use_kernel)
 
 
+@declassifier(
+    name="lsh-code", paper_eq="Eq. 5-6 (§3.2)",
+    justification="sign-quantized random projection: each bit keeps one "
+                  "sign of a Rademacher projection of the flattened "
+                  "params — a locality hash for distance comparison, "
+                  "not an invertible encoding of the model")
 def stacked_lsh_codes(stacked_params: Dict[str, torch.Tensor], seed: int,
                       bits: int = 256, backend: str = "auto") -> torch.Tensor:
     """(M, W) int32 codes (uint32 patterns) of {name: (M, ...)} params,

@@ -30,6 +30,7 @@ from typing import Any, Callable, Dict, NamedTuple, Tuple
 import torch
 from torch.profiler import record_function
 
+from repro_torch.analysis.privacy import sink
 from repro_torch.configs.paper_models import FedConfig
 from repro_torch.core import distill, lsh, neighbor, ranking, verify
 from repro_torch.core.chain import fnv1a_commit
@@ -180,7 +181,7 @@ def exchange_phase(apply_fn: Callable, fed: FedConfig, params,
         raise ValueError(f"unknown ref_mode: {fed.ref_mode!r} "
                          f"(expected one of {REF_MODES})")
     m = fed.num_clients
-    ids = sel.ids.tolist()
+    ids = sel.ids.tolist()  # analysis: host-ok ids index the forward loop
     if fed.ref_mode == "public":
         x_shared = data["x_ref"][0]
         own_ref = torch.stack([apply_fn(client(params, i), x_shared)
@@ -250,7 +251,10 @@ def announce_phase(fed: FedConfig, params, sel: SelectResult,
                                   bits=fed.lsh_bits,
                                   backend=fed.selection_backend)
     rankings = ranking.make_ranking(sel.ids, exch.l_ij, sel.sel_mask)
-    return Announcement(codes, rankings, fnv1a_commit(rankings, salt=0))
+    # the round's disclosure point: every field crossing to the chain
+    # must arrive declassified (repro_torch.analysis.taint checks it)
+    return sink("chain-announcement",
+                Announcement(codes, rankings, fnv1a_commit(rankings, salt=0)))
 
 
 # ---------------------------------------------------------------------------

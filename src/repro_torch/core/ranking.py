@@ -9,7 +9,14 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis.privacy import declassifier
 
+
+@declassifier(
+    name="rank-reveal", paper_eq="R_i (§3.3, revealed per §3.6)",
+    justification="the revealed ranking is an ORDER over public "
+                  "neighbor ids — the underlying distillation losses "
+                  "are discarded, only their argsort is disclosed")
 def make_ranking(neighbor_ids: torch.Tensor, losses: torch.Tensor,
                  valid_mask: torch.Tensor = None) -> torch.Tensor:
     """Sort each row's ids by ascending loss: (..., N) -> (..., N) int32,
@@ -38,6 +45,11 @@ def dedupe_reporter_mask(rankings: torch.Tensor,
     return reporter_mask & ~dup
 
 
+@declassifier(
+    name="rank-scores", paper_eq="Eq. 7 (§3.3)",
+    justification="crowd-sourced tally over already-revealed rankings: "
+                  "a count ratio of public votes, computable by every "
+                  "peer from the chain alone")
 def ranking_scores(rankings: torch.Tensor, num_clients: int, top_k: int,
                    reporter_mask: torch.Tensor = None, *,
                    dedupe: bool = False) -> torch.Tensor:

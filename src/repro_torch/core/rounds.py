@@ -25,6 +25,8 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 import torch
 from torch.profiler import record_function
 
+from repro_torch.analysis.privacy import declassifier, sink
+
 
 class RoundProgram(NamedTuple):
     """A federation method as a (global round, gossip epoch) pair."""
@@ -104,18 +106,42 @@ def host_metrics(metrics: Dict[str, Any]) -> Dict[str, Any]:
     out = {}
     for k, v in metrics.items():
         if isinstance(v, torch.Tensor):
-            v = v.item() if v.ndim == 0 else v.tolist()
+            v = v.tolist()  # analysis: host-ok the history, after the segment
         out[k] = v
     return out
 
 
+@declassifier(
+    name="round-telemetry", paper_eq="§4 (reported per-round metrics)",
+    justification="federation-level scalar aggregates only (means and "
+                  "fractions over the client axis) — the declassifier "
+                  "refuses any non-scalar leaf, so no per-client vector "
+                  "or model-derived array can ride this channel")
+def release_round_telemetry(scalars: Dict[str, Any]) -> Dict[str, Any]:
+    """The ONLY gate through which round metrics may reach the host tap.
+
+    Raises on any leaf that is not 0-d: the justification above is
+    enforced by the code, not left to care at each call site."""
+    for k, v in scalars.items():
+        if getattr(v, "ndim", None) != 0:
+            raise ValueError(
+                f"round-telemetry releases scalars only; {k!r} has "
+                f"shape {getattr(v, 'shape', None)!r}")
+    return scalars
+
+
 def _scalars(metrics: Dict[str, Any]) -> Dict[str, Any]:
-    """The scalar entries of one round's metrics as Python numbers."""
+    """The scalar entries of one round's metrics as Python numbers. The
+    0-d tensors are declassified and then marked as the tap's disclosure
+    before any is read, the order of the JAX segment before its
+    io_callback; per-client tensors stay on the device."""
+    released = sink("metrics-tap", release_round_telemetry(
+        {k: v for k, v in metrics.items()
+         if isinstance(v, torch.Tensor) and v.ndim == 0}))
     out = {}
     for k, v in metrics.items():
-        if isinstance(v, torch.Tensor):
-            if v.ndim == 0:
-                out[k] = v.item()
+        if k in released:
+            out[k] = released[k].item()  # analysis: host-ok released telemetry
         elif isinstance(v, (int, float)):
             out[k] = v
     return out
@@ -221,4 +247,4 @@ def _device_of(state) -> torch.device:
 
 def _synchronize(device: torch.device) -> None:
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        torch.cuda.synchronize(device)  # analysis: host-ok round wall time

@@ -34,7 +34,7 @@ def lsh_verification_mask(own_logits: torch.Tensor,
     always fail."""
     kls = kl_divergence(own_logits[None], neighbor_logits)      # (N,)
     kls = torch.where(neighbor_mask, kls, torch.inf)
-    keep = (int(neighbor_mask.sum()) + 1) // 2
+    keep = (neighbor_mask.sum() + 1) // 2
     order = torch.sort(kls, stable=True).indices
     rank_of = torch.argsort(order)
     return (rank_of < keep) & neighbor_mask

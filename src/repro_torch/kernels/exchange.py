@@ -36,6 +36,11 @@ the target.
 Each wrapper takes its plain version (`ref.all_in_one_exchange_ref`,
 `ref.streamed_exchange_ref`) for CPU and `meta` tensors only
 (`build.PLAIN_DEVICES`); for a CUDA tensor it launches its kernel or raises.
+Both register with `analysis.registry.kernel_contract` (class
+"tolerance": valid and has_target equal, l_ij and target within rtol
+1e-5 one-shot and 2e-5 streamed, atol 1e-5; the mask may flip only on an
+exact KL tie), the one-shot kernel with its shared-memory mirror
+(`fused_exchange_smem_bytes` in `csrc/exchange.cu`).
 """
 from __future__ import annotations
 
@@ -43,6 +48,7 @@ import ctypes
 
 import torch
 
+from repro_torch.analysis.registry import Estimator, kernel_contract
 from repro_torch.kernels import ref
 from repro_torch.kernels.build import (MAX_SHARED_BYTES, PLAIN_DEVICES,
                                        CudaKernel)
@@ -161,6 +167,39 @@ def _checked(own_logits, neighbor_logits, y_ref, sel_mask):
     return inputs, outputs
 
 
+NEAR_TIES = "the §3.5 mask may flip on an exact KL tie"
+
+
+def _contract_args(point: dict):
+    """Seeded CPU inputs of a contract point: unit-normal logits, labels
+    in [0, C), about three quarters of the slots selected."""
+    g = torch.Generator().manual_seed(0)
+    m, n, r, c = point["m"], point["n"], point["r"], point["c"]
+    own = torch.randn((m, r, c), generator=g)
+    nb = torch.randn((m, n, r, c), generator=g)
+    y = torch.randint(0, c, (m, r), generator=g, dtype=torch.int32)
+    sel = torch.rand((m, n), generator=g) < 0.75
+    return (own, nb, y, sel), {"lsh_verification": True}
+
+
+def _layout_args(point: dict):
+    """`oneshot_layout_bytes` arguments of a point's plan, staged and not."""
+    m, n, r, c = point["m"], point["n"], point["r"], point["c"]
+    q = oneshot_plan(m, n, r, c)["rows_per_cta"]
+    return [(n, r, c, q, staged, 1) for staged in (1, 0)]
+
+
+@kernel_contract(
+    kernel=KERNEL, stands_for="exchange_oneshot",
+    twin="all_in_one_exchange_ref", exactness="tolerance", rtol=1e-5,
+    atol=1e-5, near_ties=NEAR_TIES, helpers=("fused_exchange_smem_bytes",),
+    estimators=(Estimator("fused_exchange_smem_bytes", oneshot_layout_bytes,
+                          _layout_args),),
+    points=({"m": 4, "n": 3, "r": 8, "c": 5},
+            {"m": 10, "n": 9, "r": 64, "c": 10},
+            {"m": 8, "n": 16, "r": 64, "c": 1024},
+            {"m": 4096, "n": 16, "r": 64, "c": 10}),
+    make_args=_contract_args)
 def fused_exchange(own_logits: torch.Tensor, neighbor_logits: torch.Tensor,
                    y_ref: torch.Tensor, sel_mask: torch.Tensor, *,
                    lsh_verification: bool = True):
@@ -238,6 +277,11 @@ def streamed_plan(m: int, n: int, r: int, c: int) -> dict:
             "merged": chunks >= MERGE_CHUNKS, "fused": r * c <= FUSED_RC}
 
 
+@kernel_contract(
+    kernel=STREAMED_KERNEL, stands_for="exchange_streamed",
+    twin="streamed_exchange_ref", exactness="tolerance", rtol=2e-5,
+    atol=1e-5, near_ties=NEAR_TIES,
+    points=({"m": 4, "n": 3, "r": 8, "c": 600},), make_args=_contract_args)
 def fused_exchange_streamed(own_logits: torch.Tensor,
                             neighbor_logits: torch.Tensor,
                             y_ref: torch.Tensor, sel_mask: torch.Tensor, *,

@@ -25,6 +25,9 @@ they launch the kernel or raise.
 The kernel has no backward (the JAX package has none either): on the
 card they raise when grad mode is on and q, k or v requires grad, rather
 than return an output without a gradient.
+`gqa_attention`, the wrapper that launches, registers with
+`analysis.registry.kernel_contract` (class "tolerance": max abs error
+2e-5 in f32 on unit-normal inputs).
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ import ctypes
 
 import torch
 
+from repro_torch.analysis.registry import kernel_contract
 from repro_torch.kernels import ref
 from repro_torch.kernels.build import PLAIN_DEVICES, CudaKernel
 
@@ -56,6 +60,24 @@ def plain_gqa_attention(q, k, v, causal, scale):
     return o.reshape(b, h, sq, dh).movedim(1, 2)
 
 
+def _contract_args(point: dict):
+    """Seeded CPU unit-normal q (B, S, H, dh), k and v (B, S, KV, dh)."""
+    g = torch.Generator().manual_seed(0)
+    b, s, dh = point["b"], point["s"], point["dh"]
+    q = torch.randn((b, s, point["h"], dh), generator=g)
+    k = torch.randn((b, s, point["kv"], dh), generator=g)
+    v = torch.randn((b, s, point["kv"], dh), generator=g)
+    return (q, k, v), {"causal": point["causal"]}
+
+
+@kernel_contract(
+    kernel=KERNEL, stands_for="flash_attention", twin="flash_attention_ref",
+    twin_call=lambda args, kwargs: plain_gqa_attention(
+        *args, kwargs["causal"], 0.0),
+    exactness="tolerance", atol=2e-5,
+    points=({"b": 1, "s": 192, "h": 4, "kv": 2, "dh": 64,
+             "causal": True},),
+    make_args=_contract_args)
 def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, scale: float = 0.0) -> torch.Tensor:
     """q (B, Sq, H, dh), k/v (B, Sk, KV, dh), H a multiple of KV ->

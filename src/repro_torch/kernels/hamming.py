@@ -14,6 +14,7 @@ composition (`core.lsh.distance_matrix`) reaches it: the round selects
 through the fused kernels. The wrapper takes the plain version
 (`ref.hamming_all_pairs_ref`) for CPU and `meta` tensors only
 (`build.PLAIN_DEVICES`); for a CUDA tensor it launches the kernel or raises.
+It registers with `analysis.registry.kernel_contract` (class "exact").
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import ctypes
 
 import torch
 
+from repro_torch.analysis.registry import kernel_contract
 from repro_torch.kernels import ref
 from repro_torch.kernels.build import PLAIN_DEVICES, CudaKernel
 
@@ -37,6 +39,22 @@ def launch_path(m: int, n: int) -> str:
     return ("small", "tiled")[path(m, n)]
 
 
+def _contract_args(point: dict):
+    """Seeded CPU codes of a contract point (every uint32 pattern)."""
+    g = torch.Generator().manual_seed(0)
+    w = point["bits"] // 32
+
+    def codes(rows):
+        return torch.randint(-2 ** 31, 2 ** 31, (rows, w), generator=g,
+                             dtype=torch.int64).to(torch.int32)
+
+    return (codes(point["m"]), codes(point["n"])), {}
+
+
+@kernel_contract(
+    kernel=KERNEL, stands_for="hamming", twin="hamming_all_pairs_ref",
+    exactness="exact", helpers=("hamming_path",),
+    points=({"m": 16, "n": 24, "bits": 256},), make_args=_contract_args)
 def hamming_all_pairs(codes_a: torch.Tensor,
                       codes_b: torch.Tensor) -> torch.Tensor:
     """(M, W) x (N, W) int32 packed codes -> (M, N) int32 distances."""

@@ -48,6 +48,10 @@ unsharded call.
 Each wrapper takes its plain version (`ref.lsh_project_sums_batched_ref`,
 `ref.lsh_project_sums_ref`) for CPU and `meta` tensors only
 (`build.PLAIN_DEVICES`); for a CUDA tensor it launches its kernel or raises.
+Both register with `analysis.registry.kernel_contract` (class
+"tolerance": sums within rtol 1e-5 and atol 4e-4 of the plain version,
+1e-5 of the rows' norm at the contract shape; a code bit may differ only
+where |sum| < 1e-3).
 """
 from __future__ import annotations
 
@@ -56,6 +60,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from repro_torch.analysis.registry import kernel_contract
 from repro_torch.kernels import ref
 from repro_torch.kernels.build import PLAIN_DEVICES, CudaKernel
 from repro_torch.kernels.ops import CHUNK, MASK32
@@ -147,6 +152,24 @@ def _check(x: torch.Tensor, ndim: int, bits: int) -> None:
                          "reads it as float4)")
 
 
+NEAR_TIES = "a code bit may differ where |sum| < 1e-3"
+
+
+def _contract_args(point: dict):
+    """Seeded CPU inputs of a contract point: x uniform in [-1, 1)."""
+    g = torch.Generator().manual_seed(0)
+    shape = (point["m"], point["p"]) if "m" in point else (point["p"],)
+    x = torch.rand(shape, generator=g) * 2 - 1
+    return (x, 7), {"bits": point["bits"], **(
+        {"row_offset": point["row_offset"]} if "row_offset" in point else {})}
+
+
+@kernel_contract(
+    kernel=SINGLE_KERNEL, stands_for="lsh_single",
+    twin="lsh_project_sums_ref", exactness="tolerance", rtol=1e-5,
+    atol=4e-4, near_ties=NEAR_TIES,
+    points=({"p": 4096, "bits": 256, "row_offset": 12_345},),
+    make_args=_contract_args)
 def lsh_project_sums(x: torch.Tensor, seed: int, *, bits: int = 256,
                      row_offset: int = 0) -> torch.Tensor:
     """(P,) f32, P % CHUNK == 0 -> (bits,) f32: one client's sums.
@@ -167,6 +190,11 @@ def lsh_project_sums(x: torch.Tensor, seed: int, *, bits: int = 256,
     return out
 
 
+@kernel_contract(
+    kernel=KERNEL, stands_for="lsh_batched",
+    twin="lsh_project_sums_batched_ref", exactness="tolerance", rtol=1e-5,
+    atol=4e-4, near_ties=NEAR_TIES, helpers=("lsh_plan",),
+    points=({"m": 4, "p": 4096, "bits": 256},), make_args=_contract_args)
 def lsh_project_sums_batched(x: torch.Tensor, seed: int, *,
                              bits: int = 256) -> torch.Tensor:
     """(M, P) f32, P % CHUNK == 0 -> (M, bits) f32 projection sums."""

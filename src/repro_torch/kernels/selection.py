@@ -49,6 +49,11 @@ Each wrapper takes its plain version (`ref.fused_select_ref`,
 `ref.fused_select_tiled_ref`, `ref.ann_select_ref`,
 `ref.ann_select_grouped_ref`) for CPU and `meta` tensors only
 (`build.PLAIN_DEVICES`); for a CUDA tensor it launches its kernel or raises.
+All four register with `analysis.registry.kernel_contract` (class
+"exact": ids and weights equal to the plain version's on the same
+device; the unfused Eq. 6-8 reference may differ where two weights are
+within 1 ulp), the mma instances with their shared-memory mirrors
+(`select_smem_bytes`, `ann_smem_bytes` in `csrc/selection.cu`).
 """
 from __future__ import annotations
 
@@ -56,6 +61,7 @@ import ctypes
 
 import torch
 
+from repro_torch.analysis.registry import Estimator, kernel_contract
 from repro_torch.kernels import ref
 from repro_torch.kernels.build import (MAX_SHARED_BYTES, PLAIN_DEVICES,
                                        CudaKernel)
@@ -196,6 +202,60 @@ def _plan_args(plan: dict) -> tuple:
     return plan["kw"], plan["rows"], plan["splits"], plan["split_len"]
 
 
+NEAR_TIES = ("the unfused Eq. 6-8 reference may order two weights within "
+             "1 ulp differently")
+GAMMA = 1.0          # the contract points' Eq. 8 gamma (the paper's)
+
+
+def _contract_args(point: dict):
+    """Seeded CPU inputs of a contract point: codes of every uint32
+    pattern, Eq. 7 scores in [0, 1); `k` adds (M, K) candidate ids (a
+    random order of the M + 1 ids, sentinel M included, per row)."""
+    g = torch.Generator().manual_seed(0)
+    m, bits = point["m"], point["bits"]
+    codes = torch.randint(-2 ** 31, 2 ** 31, (m, bits // 32), generator=g,
+                          dtype=torch.int64).to(torch.int32)
+    scores = torch.rand((m,), generator=g)
+    kw = {"bits": bits, "gamma": GAMMA, "num_neighbors": point["n"]}
+    if "k" in point:
+        cand = torch.rand((m, m + 1), generator=g).argsort(1)[:, :point["k"]]
+        return (codes, scores, cand.to(torch.int32)), kw
+    return (codes, scores), kw
+
+
+def _twin(name: str):
+    """The plain version `name` of ref on a wrapper's arguments: the exp
+    table built on their device, as the wrapper builds it."""
+    def call(args, kwargs):
+        kw = dict(kwargs)
+        bits, gamma = kw.pop("bits"), kw.pop("gamma")
+        codes = args[0]
+        lut = ref.selection_lut(codes.shape[1], bits, gamma,
+                                device=codes.device)
+        return getattr(ref, name)(*args, lut, **kw)
+    return call
+
+
+def _select_smem_args(point: dict):
+    plan = select_plan(point["m"], point["bits"] // 32, point["n"])
+    return [(plan["kw"], plan["rows"], min(point["n"], point["m"] - 1))]
+
+
+SELECT_SMEM = Estimator("select_smem_bytes", select_smem_bytes,
+                        _select_smem_args)
+# exact-selection contract points (all on the mma instance)
+SELECT_POINTS = ({"m": 64, "bits": 256, "n": 8},
+                 {"m": 1024, "bits": 256, "n": 16},
+                 {"m": 4096, "bits": 512, "n": 128},
+                 {"m": 46_489, "bits": 1024, "n": 16})
+
+
+@kernel_contract(
+    kernel=KERNEL, stands_for="selection_oneshot", twin="fused_select_ref",
+    twin_call=_twin("fused_select_ref"), exactness="exact",
+    near_ties=NEAR_TIES, helpers=("select_smem_bytes",),
+    estimators=(SELECT_SMEM,), points=SELECT_POINTS,
+    make_args=_contract_args)
 def fused_select(codes: torch.Tensor, scores: torch.Tensor, *, bits: int,
                  gamma: float, num_neighbors: int, use_lsh: bool = True,
                  use_rank: bool = True):
@@ -220,6 +280,14 @@ def fused_select(codes: torch.Tensor, scores: torch.Tensor, *, bits: int,
                    plan_args=_plan_args(select_plan(m, w, num_neighbors)))
 
 
+@kernel_contract(
+    kernel=TILED_KERNEL, stands_for="selection_tiled",
+    twin="fused_select_tiled_ref", twin_call=_twin("fused_select_tiled_ref"),
+    exactness="exact", near_ties=NEAR_TIES, helpers=("select_smem_bytes",),
+    estimators=(SELECT_SMEM,),
+    points=({"m": 200, "bits": 256, "n": 16},) + SELECT_POINTS[1:]
+    + ({"m": 65_536, "bits": 256, "n": 16},),
+    make_args=_contract_args)
 def fused_select_tiled(codes: torch.Tensor, scores: torch.Tensor, *,
                        bits: int, gamma: float, num_neighbors: int,
                        use_lsh: bool = True, use_rank: bool = True):
@@ -250,6 +318,11 @@ ANN_KERNEL = CudaKernel(
      ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
 
 
+@kernel_contract(
+    kernel=ANN_KERNEL, stands_for="selection_ann", twin="ann_select_ref",
+    twin_call=_twin("ann_select_ref"), exactness="exact",
+    points=({"m": 64, "bits": 256, "n": 8, "k": 32},),
+    make_args=_contract_args)
 def fused_select_ann(codes: torch.Tensor, scores: torch.Tensor,
                      cand_ids: torch.Tensor, *, bits: int, gamma: float,
                      num_neighbors: int, use_lsh: bool = True,
@@ -326,6 +399,36 @@ def ann_plan(m: int, w: int, n: int, k: int, n_slots: int) -> dict:
             "ctas": tiles * splits}
 
 
+def _grouped_args(point: dict):
+    """`_contract_args` with the per-bucket candidates of the codes
+    (`core.ann.bucket_candidates`, as the ANN route builds them)."""
+    from repro_torch.core import ann
+    (codes, scores), kw = _contract_args(point)
+    cand = ann.bucket_candidates(
+        codes, scores, seed=0, prefix_bits=point["prefix_bits"],
+        probes=point["probes"], num_neighbors=min(point["n"],
+                                                  point["m"] - 1))
+    return (codes, scores, cand), kw
+
+
+def _ann_smem_args(point: dict):
+    nsel = min(point["n"], point["m"] - 1)
+    plan = ann_plan(point["m"], point["bits"] // 32, point["n"], 1, 1)
+    return [(plan["kw"], plan["rows"], nsel)]
+
+
+@kernel_contract(
+    kernel=GROUPED_KERNEL, stands_for="selection_ann",
+    twin="ann_select_grouped_ref", twin_call=_twin("ann_select_grouped_ref"),
+    exactness="exact", helpers=("ann_smem_bytes",),
+    estimators=(Estimator("ann_smem_bytes", ann_smem_bytes,
+                          _ann_smem_args),),
+    points=({"m": 64, "bits": 256, "n": 8, "prefix_bits": 2, "probes": 1},
+            {"m": 4096, "bits": 256, "n": 16, "prefix_bits": 10,
+             "probes": 8},
+            {"m": 65_536, "bits": 1024, "n": 128, "prefix_bits": 10,
+             "probes": 8}),
+    make_args=_grouped_args)
 def fused_select_ann_grouped(codes: torch.Tensor, scores: torch.Tensor, cand,
                              *, bits: int, gamma: float, num_neighbors: int,
                              use_lsh: bool = True, use_rank: bool = True):

@@ -60,12 +60,12 @@ def chain_publisher(chain: Blockchain, num_clients: int):
     a_i = {lsh_i, C_i} plus the revealed rankings to the host ledger."""
 
     def publish(round_idx: int, state) -> None:
-        codes = state.codes.cpu()
-        rankings = state.rankings.cpu()
+        codes = state.codes.cpu()  # analysis: host-ok the ledger's copy
+        rankings = state.rankings.tolist()  # analysis: host-ok reveals
         ann = {i: {"lsh": lsh_code_hex(codes[i]),
                    "commit": sha256_commit(rankings[i])}
                for i in range(num_clients)}
-        reveals = {i: rankings[i].tolist() for i in range(num_clients)}
+        reveals = {i: rankings[i] for i in range(num_clients)}
         chain.publish_round(round_idx + 1, ann, reveals=reveals)
 
     return publish

@@ -39,7 +39,7 @@ from repro_torch.train import make_prefill_step, make_serve_step
 
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+        torch.cuda.synchronize(dev)  # analysis: host-ok prefill/decode times
 
 
 def serve(arch: str, *, batch: int = 4, prompt_len: int = 32,
@@ -99,7 +99,7 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32,
         gen_tokens = torch.stack(out, dim=1)
         _sync(dev)
         t_decode = time.perf_counter() - t0
-    return {"generated": gen_tokens.cpu().numpy(),
+    return {"generated": gen_tokens.cpu().numpy(),  # analysis: host-ok tokens
             "prefill_s": t_prefill,
             "decode_tok_per_s": batch * (max_new - 1) / max(t_decode, 1e-9),
             "logits": torch.stack(seen),
@@ -161,7 +161,8 @@ def serve_personalized(dataset: str = "mnist", *, ckpt_dir=None,
     x_test = torch.from_numpy(ds.stacked()["x_test"])
     y_test = ds.stacked()["y_test"]
     rs = np.random.RandomState(seed)
-    active_ids = np.flatnonzero(state.active.cpu().numpy())
+    active = state.active.cpu().numpy()  # analysis: host-ok members
+    active_ids = np.flatnonzero(active)
     cids, tids = [], []
     for _ in range(requests):
         cid = int(active_ids[rs.randint(len(active_ids))])

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from repro_torch.analysis.privacy import sink
 from repro_torch.checkpoint import store
 from repro_torch.configs.paper_models import FedConfig
 from repro_torch.core.chain import Blockchain, save_chain
@@ -134,12 +135,15 @@ def service_program(apply_fn: Callable, optimizer, fed: FedConfig,
                 batch_idx=batch_idx, participate=a)
         with record_function("wpfed.announce"):
             ann = announce_phase(fed, params, sel, exch, st.round)
-            new_fed = FedState(
-                params, opt_state,
+            # these merged fields are what transport.collect reads onto
+            # the host ledger and what checkpoints as chain.json: the
+            # service's disclosure point (repro_torch.analysis.taint)
+            codes, rankings, commitments = sink("ledger-publish", (
                 torch.where(a[:, None], ann.codes, st.codes),
                 torch.where(a[:, None], ann.rankings, st.rankings),
-                torch.where(a, ann.commitments, st.commitments),
-                st.seed, st.round + 1)
+                torch.where(a, ann.commitments, st.commitments)))
+            new_fed = FedState(params, opt_state, codes, rankings,
+                               commitments, st.seed, st.round + 1)
         metrics = _service_metrics(sel, exch, train_metrics, state, a)
         new_state = ServiceState(
             new_fed, a, torch.where(a, 0, state.code_age + 1).to(
@@ -311,7 +315,7 @@ def run_service(apply_fn: Callable, optimizer, fed: FedConfig,
         pf = transport.period_faults(period, fed.num_clients)
         scalars = None
         if pf is not None:
-            announcing = base_active.cpu().numpy()
+            announcing = base_active.cpu().numpy()  # analysis: host-ok faults
             scalars = fault_scalars(pf, announcing)
             fault_cell.clear()
             fault_cell.update(scalars)
@@ -323,7 +327,7 @@ def run_service(apply_fn: Callable, optimizer, fed: FedConfig,
                 state = mask_stragglers(state, stragglers)
             pre = (state.fed.codes, state.fed.rankings,
                    state.fed.commitments, state.code_age)
-        seg_active = state.active.cpu().numpy()
+        seg_active = state.active.cpu().numpy()  # analysis: host-ok report
         r0 = period * length
         t0 = time.perf_counter()
         state, metrics = seg_fn(state, data, r0)

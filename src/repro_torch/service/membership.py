@@ -184,7 +184,8 @@ def staleness_discount(code_age: torch.Tensor,
     weight. Computed in f32 on the CPU and moved to the ages' device, as
     `kernels.ref.selection_lut` builds the Eq. 8 table, so the card and
     the CPU scale scores identically."""
-    age = code_age.detach().to("cpu", torch.float32)
+    age = code_age.detach().to(  # analysis: host-ok exp on the CPU
+        "cpu", torch.float32)
     return torch.exp(-staleness_lambda * age).to(code_age.device)
 
 

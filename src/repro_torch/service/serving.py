@@ -25,7 +25,18 @@ from typing import Any, Callable, Dict, List, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis.privacy import declassifier, sink
 from repro_torch.tree import tree_leaves, tree_map
+
+
+@declassifier(
+    name="served-logits", paper_eq="§2.1 (personalized model outputs)",
+    justification="output of client i's OWN personalized model on the "
+                  "requester's input — serving a client its own "
+                  "predictions is the product of the federation, not a "
+                  "cross-client disclosure")
+def served_logits(logits: torch.Tensor) -> torch.Tensor:
+    return logits
 
 
 class PersonalizedServer:
@@ -74,15 +85,16 @@ class PersonalizedServer:
         """Logits (B, C) of request b from client ids[b]'s model on x[b]:
         the clients' rows gathered, one vmapped single-example forward."""
         rows = tree_map(lambda p: p[ids], self._params)
-        return torch.func.vmap(
+        out = torch.func.vmap(
             lambda p, xi: self._apply_fn(p, xi[None])[0])(rows, x)
+        return sink("serving-response", served_logits(out))
 
     def _serve_chunk(self, chunk):
         dev = tree_leaves(self._params)[0].device
         ids = torch.tensor([c for c, _ in chunk], device=dev)
         x = torch.stack([xi for _, xi in chunk]).to(dev)
         t0 = time.perf_counter()
-        logits = self._forward(ids, x).cpu().numpy()
+        logits = self._forward(ids, x).cpu().numpy()  # analysis: host-ok reply
         dt = time.perf_counter() - t0
         self.stats["requests"] += len(chunk)
         self.stats["batches"] += 1

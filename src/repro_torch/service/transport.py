@@ -164,8 +164,8 @@ class BulletinTransport:
         Duplicate deliveries are byte-identical and dedupe to one
         entry (counted in the trace, no state effect)."""
         announcing = np.asarray(announcing, bool)
-        codes = state.fed.codes.cpu()
-        rankings = state.fed.rankings.cpu()
+        codes = state.fed.codes.cpu()  # analysis: host-ok the board's copy
+        rankings = state.fed.rankings.tolist()  # analysis: host-ok reveals
         m = announcing.shape[0]
         pf = self.period_faults(period, m)
         failed = np.zeros(m, bool)
@@ -202,7 +202,7 @@ class BulletinTransport:
                     # the second, byte-identical copy dedupes to nothing
                     self.trace.record(period, "duplicate", i)
             announcements[i] = entry
-            reveals[i] = rankings[i].tolist()
+            reveals[i] = rankings[i]
         return announcements, reveals, failed, delayed
 
     def _with_retry(self, period: int, kind: str, stream: int,

@@ -1198,3 +1198,19 @@ def test_exchange_kernels_on_masked_rows_equal_plain(cuda, m, n, r, c):
             torch.testing.assert_close(kt, pt, rtol=rtol, atol=1e-5)
             assert torch.equal(kv, pv) and torch.equal(kh, ph)
         assert _same_bits(got, fn(own, nb, y, sel))
+
+
+@pytest.mark.cuda
+def test_analysis_gate_on_the_card(cuda):
+    """`repro_torch.analysis` on the card: every registry entry launched
+    against its twin, the shared-memory mirrors equal to their Python
+    functions, the 16 taint targets clean through the kernels (whose
+    wrapper rule fired), the lint and completeness clean."""
+    from repro_torch.analysis.__main__ import run_gate
+    gate = run_gate("cuda")
+    assert gate["findings"] == [], [str(f) for f in gate["findings"]]
+    assert sorted(gate["contracts"]) == sorted(gate["entries"])
+    assert all(c["launches"] >= 1 for c in gate["contracts"].values())
+    assert gate["estimator_checks"] > 0
+    assert {"lsh_projection", "selection", "exchange"} <= set(
+        gate["taint_kernels"])
