@@ -50,7 +50,8 @@
    whisper's bidirectional encoder: 12 heads, dh 64, 1,500 frames),
    timed beside torch's scaled_dot_product_attention
    (`library_ms`, never called by the port) and bounded on its route
-   (the tensor cores: f32 by 3xTF32 at 495 / 3 TFLOP/s, bf16 at 989;
+   (`flash_attention.attention_flops` on the tensor cores: f32 by 3xTF32
+   at 495 / 3 TFLOP/s, bf16 at 989;
    `cuda_core_bound_ms` at the f32 CUDA-core 67). The Hamming checks
    print the path the launch took (small or tiled). The LSH checks print
    the split length L (`lsh_projection.split_len`, from P alone), the
@@ -165,6 +166,44 @@
    `launch/dryrun.py` for kimi-k2 x train_4k on meta: bytes per device
    on 16x16, params + AdamW state equal to the spec arithmetic written
    out here (`spec_elems`). Every process group made is destroyed.
+6b. The federation with transformer clients (`fed_dryrun_path`, after
+   sharding, before the analysis gate): `launch/fed.py`'s dry run
+   (`prepare_fed_dryrun`, `run_fed_dryrun`; reduced phi3-medium-14b
+   clients in bf16, drawn on the card) at 256 clients (the JAX
+   default), 1,024 public and tiled (CI's run) and 256 through the ANN
+   selection under `lsh_cheat` with a gossip epoch (G = 2), counts set
+   to 0 just before each run and read just after: one timed segment
+   each, the first at its size (`"warmup_segments": 0`: no warm-up of
+   its own, so its seconds and peak include the allocator's growth; the
+   16-client segments below run first and build and load every kernel),
+   which launches its path's LSH, selection
+   and exchange kernels and flash, no other, and flash exactly
+   2 x (M + M x N) times per personal exchange and 2 x M per public one
+   (2 layers), so never in the update; each protocol phase's
+   synchronised wall seconds (`timed_phases`). At 256 clients every
+   client's wq, wk and wv in every layer moved, and the device busy time
+   is estimated from profiled forwards and local steps. Each run prints
+   the dry run's JSON (the JAX keys, flops, wall_s, peak, state and temp
+   bytes) with its launches and set-up seconds. 16 clients drawn on the
+   CPU, one segment on the card through flash, one on the card under
+   `set_attn_impl("naive")` and one on the CPU: ids equal, flash 288
+   launches and none in the other two, flops equal; flash against naive
+   and card against CPU within FED16_LIMITS: the relative L2 distance of
+   the worst leaf of the new Adam moments m and v (they hold the
+   gradient) and of the update p1 - p0, of the exchange's target_ref
+   and l_ij, and mean_neighbor_loss's, with valid masks and has_target
+   equal. Three controls must each be refused: the card's exchange with
+   flash unmasked (a wrong attention), its moments and update with wq,
+   wk, wv given no gradient (the update through a kernel without a
+   backward), and with the gradient doubled (a wrong loss scale). The
+   path's kernels at its shapes, each against its
+   plain version, timed, with its bound and library call: LSH at M =
+   256 and 1,024, P = 1,640,448 (reduced phi3, padded), 128 bits
+   (`torch.matmul` with R materialised); the one-shot selection at 256,
+   the tiled at 1,024 and the grouped ANN at 256 (128 bits, N = 8); the
+   one-shot exchange at (256, 8, 8, 1,024) and the streamed at (1,024,
+   8, 8, 1,024); flash at B 8, S 32, 4 query over 1 KV head, dh 64,
+   causal, f32 and bf16.
 7. The continuous service (`service_path`, last, since it holds cuDNN
    to deterministic algorithms): `run_service_federation("mnist",
    periods=4, reselect_every=4)` on the card with churn
@@ -207,7 +246,8 @@
    process).
 9. Prints {"phase": "seconds", ...}, the wall seconds of each section
    (build, kernel checks, main paths, profiles, attack, baselines,
-   serve, families, train, sharding, analysis, service), then
+   serve, families, train, sharding, fed_dryrun, analysis, service),
+   then
    {"kernels": [...]}
    for every kernel of the paths driven (the
    per-row ANN kernel, which no path takes since the route took the
@@ -371,19 +411,28 @@ def timings(kernel_fn, kernel_names, plain_fn, library_fn=None,
     input casts included; plain_ms: all device time per call of the
     plain version; library_ms: the library call's device time by kernel
     name (`library_device_ms`); each with its event-timed call_ms.
-    `per_call`: launches of each kernel name per wrapper call."""
+    `per_call`: launches of each kernel name per wrapper call. A profile
+    that records none of the device work is taken once more; where the
+    second records none either, the time is the call's CUDA-event time,
+    and `<key>_by` says which ("profiler" or "events")."""
     out = {"call_ms": time_ms(kernel_fn),
            "plain_call_ms": time_ms(plain_fn, warmup=min(3, plain_iters),
                                     iters=plain_iters)}
-    out["kernel_ms"] = (device_ms(kernel_fn, kernel_names, per_call=per_call)
-                        or out["call_ms"])
-    out["plain_ms"] = (device_ms(plain_fn, iters=plain_iters)
-                       or out["plain_call_ms"])
+
+    def by(key, profiled, events):
+        ms = profiled() or profiled()
+        out[key], out[key + "_by"] = ((ms, "profiler") if ms
+                                      else (events, "events"))
+
+    by("kernel_ms", lambda: device_ms(kernel_fn, kernel_names,
+                                      per_call=per_call), out["call_ms"])
+    by("plain_ms", lambda: device_ms(plain_fn, iters=plain_iters),
+       out["plain_call_ms"])
     out["library_ms"] = None
     if library_fn is not None:
         out["library_call_ms"] = time_ms(library_fn)
-        out["library_ms"] = (library_device_ms(library_fn)
-                             or out["library_call_ms"])
+        by("library_ms", lambda: library_device_ms(library_fn),
+           out["library_call_ms"])
     return out
 
 
@@ -455,7 +504,7 @@ def check_lsh(torch, m, p, bits, gen):
                 per_call=len(groups))
     del r
     # f32 FMAs and the integer hash run on separate pipes: the larger wins
-    ops_s = max(2.0 * m * p * bits / F32_FLOP_PER_S,
+    ops_s = max(lsh_projection.projection_flops(m, p, bits) / F32_FLOP_PER_S,
                 HASH_OPS * p * bits / INT32_OP_PER_S)
     bms, by = bound(4.0 * m * p + 4.0 * m * bits, ops_s)
     return dict(**t, **order, max_abs_err=err.max().item(), bound_ms=bms,
@@ -979,15 +1028,6 @@ def check_hamming(torch, m, bits, gen):
                 launches=hamming.KERNEL.launches - n0)
 
 
-def attention_pairs(sq: int, sk: int, causal: bool) -> int:
-    """(query, key) pairs the attention must score: all of them, or with
-    the top-left causal mask sum_i min(i + 1, Sk) (S(S+1)/2 at Sq = Sk)."""
-    if not causal:
-        return sq * sk
-    full = min(sq, sk)
-    return full * (full + 1) // 2 + (sq - full) * sk
-
-
 def check_flash(torch, n, sq, sk, dh, causal, dtype, gen, heads=None):
     """The flash-attention kernel against its plain version on unit-normal
     (N, S, dh) inputs, or with `heads` = (H, KV) on the model's (B, S, H,
@@ -1041,7 +1081,7 @@ def check_flash(torch, n, sq, sk, dh, causal, dtype, gen, heads=None):
     n0 = flash_attention.KERNEL.launches
     t = timings(call, ("flash_fwd_kernel",), plain, library_fn=lib)
     size = q.element_size()
-    flop = 4.0 * n * h * attention_pairs(sq, sk, causal) * dh
+    flop = float(flash_attention.attention_flops(n, h, sq, sk, dh, causal))
     rate = F32_3XTF32_FLOP_PER_S if dtype == torch.float32 \
         else BF16_FLOP_PER_S
     bms, by = bound(size * (2.0 * q.numel() + 2.0 * k.numel()), flop / rate)
@@ -2547,6 +2587,333 @@ def service_path(torch, kernels):
     return launches
 
 
+# the federation dry run (`launch/fed.py:dryrun_fed_round`): the JAX
+# default, CI's 1,024-client public tiled run, and the ANN route under
+# attack with a gossip epoch
+FED_DRYRUNS = (("default", dict(num_clients=256)),
+               ("ci", dict(num_clients=1024, ref_mode="public",
+                           tiling="tiled")),
+               ("ann_attack", dict(num_clients=256, backend="ann",
+                                   reselect_every=2, attack="lsh_cheat")))
+FED_PATHS = {"default": ("lsh_projection", "selection", "exchange"),
+             "ci": ("lsh_projection", "selection_tiled",
+                    "exchange_streamed"),
+             "ann_attack": ("lsh_projection", "selection_ann_grouped",
+                            "exchange")}
+PHASE_FNS = ("select_phase", "exchange_phase", "update_phase",
+             "announce_phase")
+
+
+class timed_phases:
+    """Within the block, each protocol phase (`core.protocol`'s four
+    functions, which the round programs look up at each call) runs
+    between two device synchronisations and adds its wall seconds to
+    `spent` (a sample of the round's split; the profiler cannot hold a
+    256-client segment's events); `last` keeps the last (args, kwargs,
+    result) of each phase named in `keep`."""
+
+    def __init__(self, torch, keep=()):
+        from collections import Counter
+
+        from repro_torch.core import protocol
+        self.torch, self.protocol, self.spent = torch, protocol, Counter()
+        self.orig = {n: getattr(protocol, n) for n in PHASE_FNS}
+        self.keep, self.last = keep, {}
+
+    def __enter__(self):
+        for name, fn in self.orig.items():
+            setattr(self.protocol, name, self._timed(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.protocol, name, fn)
+
+    def _timed(self, name, fn):
+        def call(*args, **kw):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            self.torch.cuda.synchronize()
+            self.spent[name[:-len("_phase")]] += time.perf_counter() - t0
+            if name in self.keep:
+                self.last[name] = (args, kw, out)
+            return out
+        return call
+
+
+def attention_names(params):
+    """The names of every layer's wq, wk, wv in a flat client dict."""
+    return [k for k in params if k.rsplit(".", 1)[-1] in ("wq", "wk", "wv")]
+
+
+def attention_weights(torch, params):
+    """Copies of every layer's wq, wk, wv (M, reps, ...)."""
+    return {k: params[k].clone() for k in attention_names(params)}
+
+
+def unit_busy_ms(torch, dr):
+    """Device busy ms of one client forward on a reference batch (no grad:
+    flash) and of one local step (`local_update`), each profiled over a
+    few calls on client 0."""
+    from repro_torch.core.protocol import client, local_update
+    params, opt_state = client(dr.state.params, 0), client(
+        dr.state.opt_state, 0)
+    x_ref = dr.data["x_ref"][0]
+    data_i = {k: dr.data[k][0] for k in ("x_train", "y_train", "x_ref")}
+    target = torch.zeros((dr.fed.ref_batch, dr.cfg.vocab_size),
+                         device="cuda")
+    has = torch.ones((), dtype=torch.bool, device="cuda")
+    idx = torch.randint(0, 64, (1, 64), device="cuda")
+
+    def fwd():
+        with torch.no_grad():
+            dr.apply_fn(params, x_ref)
+
+    def step():
+        local_update(dr.apply_fn, dr.optimizer, dr.fed, params, opt_state,
+                     data_i, target, has, idx)
+
+    return {"forward": device_ms(fwd, iters=16),
+            "local_step": device_ms(step, iters=4)}
+
+
+# How far two 16-client segments from one state may lie apart: the
+# worst leaf's relative L2 distance ||a - b|| / ||b|| of the new Adam
+# moments m and v (after a first step m = (1 - b1) g and v = (1 - b2)
+# g^2, so they carry the gradient) and of the update p1 - p0 (a first
+# Adam step is ~lr * sign(g), so gradients near 0 flip entries of it);
+# the share of the exchange's valid-mask entries that differ (the §3.5
+# mask keeps the upper half by KL, so near-ties at its median may swap);
+# the relative L2 distance of target_ref over the clients whose masks
+# agree and of l_ij; mean_neighbor_loss's relative difference. Set from
+# sound runs on an H100 (flash in the exchange against the naive
+# attention, the card against the CPU, six seeds; largest readings m
+# 0.0093, v 0.0113, update 0.158, masks 2 of 128, target_ref 0.0039,
+# l_ij 1.7e-4, mean_neighbor_loss 2.9e-5: PERF.md, section 6)
+# at 3-6 times the largest reading; each control exceeds one of them.
+FED16_LIMITS = {"m": 0.05, "v": 0.05, "update": 0.5,
+                "valid_mask_differ": 0.05, "target_ref": 0.02,
+                "l_ij": 1e-3, "mean_neighbor_loss": 1.5e-4}
+
+
+def segment_agreement(torch, a, b, p0):
+    """The distances of FED16_LIMITS between runs `a` and `b`, each a
+    (state, metrics, ExchangeResult) of one segment from params `p0`,
+    and whether their has_target are equal."""
+    def rel(x, y):
+        x, y = x.detach().float().cpu(), y.detach().float().cpu()
+        return ((x - y).norm() / y.norm()).item()
+
+    (sa, ma, ea), (sb, mb, eb) = a, b
+    out = {part: max(rel(sa.opt_state[part][k], sb.opt_state[part][k])
+                     for k in sb.opt_state[part]) for part in ("m", "v")}
+    out["update"] = max(
+        rel(sa.params[k].cpu().float() - p0[k].cpu().float(),
+            sb.params[k].cpu().float() - p0[k].cpu().float()) for k in p0)
+    same = ea.valid_mask.cpu() == eb.valid_mask.cpu()
+    out["valid_mask_differ"] = 1.0 - same.float().mean().item()
+    rows = same.all(-1)
+    out["target_ref"] = rel(ea.target_ref.cpu()[rows],
+                            eb.target_ref.cpu()[rows])
+    out["l_ij"] = rel(ea.l_ij, eb.l_ij)
+    out["mean_neighbor_loss"] = rel(ma["mean_neighbor_loss"],
+                                    mb["mean_neighbor_loss"])
+    out["has_target_equal"] = torch.equal(ea.has_target.cpu(),
+                                          eb.has_target.cpu())
+    return out
+
+
+def over_limits(agree):
+    """The keys of `agree` past FED16_LIMITS, and has_target if it
+    differs."""
+    return sorted([k for k, lim in FED16_LIMITS.items()
+                   if not agree[k] <= lim]
+                  + ([] if agree["has_target_equal"] else
+                     ["has_target_equal"]))
+
+
+def fed_dryrun_path(torch, kernels):
+    """The federation with transformer clients (section 6b of the
+    docstring): three dry-run configurations, each with its launches;
+    attention trained at 256 clients; flash against the naive attention
+    and the card against the CPU at 16, with controls; the path's
+    kernels at its shapes. Each timed run is the first segment at its
+    size (no warm-up of its own; `launch/fed.py --dryrun` times one
+    after a warm-up)."""
+    from repro_torch.core import protocol
+    from repro_torch.kernels import flash_attention, ops
+    from repro_torch.launch.fed import (prepare_fed_dryrun, run_fed_dryrun,
+                                        segment_flops)
+    from repro_torch.models import attention
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(27)
+    out, t_phase = {}, time.perf_counter()
+    # 16 clients drawn on the CPU: one segment through flash and one
+    # through the naive attention on the card, one on the CPU; the card's
+    # first segments also warm the process for the timed runs below
+    runs = {}
+    for dev, impl in (("cuda", "auto"), ("cuda", "naive"), ("cpu", "auto")):
+        dr = prepare_fed_dryrun(16, device=dev, draw_device="cpu")
+        attention.set_attn_impl(impl)
+        n0 = flash_attention.KERNEL.launches
+        t0 = time.perf_counter()
+        try:
+            with timed_phases(torch, keep=("exchange_phase",)) as seen:
+                state, metrics = dr.segment_fn(dr.state, dr.data)
+        finally:
+            attention.set_attn_impl("auto")
+        runs[dev, impl] = (dr, (state, metrics[0],
+                                seen.last["exchange_phase"][2]),
+                           time.perf_counter() - t0,
+                           flash_attention.KERNEL.launches - n0,
+                           seen.last["exchange_phase"])
+    (dc, rc, tc, lc, call), (_, rn, _, ln, _), (dp, rp, tp, lp, _) = (
+        runs["cuda", "auto"], runs["cuda", "naive"], runs["cpu", "auto"])
+    if (lc, ln, lp) != (2 * (16 + 16 * 8), 0, 0):
+        raise AssertionError(f"16 clients: flash launched {(lc, ln, lp)} "
+                             f"times (card, naive, CPU), not (288, 0, 0)")
+    for label, ro in (("naive", rn), ("CPU", rp)):
+        if not torch.equal(rc[1]["neighbor_ids"].cpu(),
+                           ro[1]["neighbor_ids"].cpu()):
+            raise AssertionError(f"16 clients: the card's ids differ from "
+                                 f"the {label} run's")
+    if segment_flops(dc) != segment_flops(dp):
+        raise AssertionError("16 clients: card and CPU flops differ")
+    p0 = dp.state.params
+    agree = {"flash_naive": segment_agreement(torch, rc, rn, p0),
+             "card_cpu": segment_agreement(torch, rc, rp, p0)}
+    for pair in agree:
+        over = over_limits(agree[pair])
+        if over:
+            raise AssertionError(f"16 clients, {pair}: {over} past "
+                                 f"FED16_LIMITS: {agree[pair]}")
+    # controls, each of which the comparisons must refuse: the card's
+    # exchange with flash unmasked (a wrong attention), and the card's
+    # segment with no gradient reaching wq, wk, wv (what the update
+    # would give through a kernel without a backward) or with twice the
+    # gradient (a wrong loss scale)
+    args, kw, _ = call
+    real = ops.gqa_flash_attention
+    ops.gqa_flash_attention = lambda q, k, v, causal, **opt: real(  # noqa: E731
+        q, k, v, causal=False, **opt)
+    try:
+        unmasked = protocol.exchange_phase(*args, **kw)
+    finally:
+        ops.gqa_flash_attention = real
+    sc, mc, ec = rc
+    att = set(attention_names(sc.params))
+    frozen = sc._replace(
+        params={k: p0[k].to(v.device) if k in att else v
+                for k, v in sc.params.items()},
+        opt_state={**sc.opt_state, **{
+            part: {k: v * (k not in att) for k, v in sc.opt_state[part]
+                   .items()} for part in ("m", "v")}})
+    doubled = sc._replace(opt_state={
+        **sc.opt_state, "m": {k: 2 * v for k, v in sc.opt_state["m"].items()},
+        "v": {k: 4 * v for k, v in sc.opt_state["v"].items()}})
+    controls = {}
+    for name, run in (("flash_unmasked", (sc, mc, unmasked)),
+                      ("attention_gradient_zeroed", (frozen, mc, ec)),
+                      ("gradient_doubled", (doubled, mc, ec))):
+        for pair, against in (("flash_naive", rn), ("card_cpu", rp)):
+            over = over_limits(segment_agreement(torch, run, against, p0))
+            if not over:
+                raise AssertionError(f"16 clients: the control {name} "
+                                     f"passes the {pair} comparison")
+            controls[f"{name}_vs_{pair}"] = over
+    emit({"phase": "fed_dryrun", "run": "flash_naive_cpu_16",
+          "ids_equal": True, "flops": segment_flops(dc)["total"],
+          "flash_launches": lc, "agreement": agree, "limits": FED16_LIMITS,
+          "controls_refused_on": controls, "card_s": tc, "cpu_s": tp})
+    del runs, dc, dp, rc, rn, rp, call, args, kw, unmasked, frozen, doubled
+    laps = {"clients_16_s": time.perf_counter() - t_phase}
+
+    for label, kw in FED_DRYRUNS:
+        t0 = time.perf_counter()
+        dr = prepare_fed_dryrun(**kw)
+        torch.cuda.synchronize()
+        set_up_s = time.perf_counter() - t0
+        m, g = dr.fed.num_clients, kw.get("reselect_every", 1)
+        n = min(dr.fed.num_neighbors, m - 1)
+        fwd = m + (m * n if dr.fed.ref_mode == "personal" else 0)
+        before = (attention_weights(torch, dr.state.params)
+                  if label == "default" else None)
+        for k in kernels.values():
+            k.launches = 0
+        with timed_phases(torch) as phases:
+            report, state = run_fed_dryrun(dr, warmup=0, log=None)
+        phases = phases.spent
+        launches = {k: v.launches for k, v in kernels.items()}
+        expect_launches(launches, FED_PATHS[label] + ("flash_attention",),
+                        set(kernels) - set(FED_PATHS[label])
+                        - {"flash_attention"}, f"fed_dryrun {label}")
+        if launches["flash_attention"] != g * 2 * fwd:
+            raise AssertionError(
+                f"fed_dryrun {label}: flash launched "
+                f"{launches['flash_attention']} times, not {g * 2 * fwd} "
+                f"(2 layers x the exchanges' forwards)")
+        extra = {}
+        if label == "default":
+            # the update trains attention: every client's projections
+            # moved in every layer
+            after = attention_weights(torch, state.params)
+            frozen = [(k, i) for k, v in after.items() for i in range(m)
+                      if torch.equal(v[i], before[k][i])]
+            if frozen:
+                raise AssertionError(f"attention weights of {len(frozen)} "
+                                     f"(leaf, client) pairs did not train, "
+                                     f"e.g. {frozen[:3]}")
+            busy = unit_busy_ms(torch, dr)
+            est = (fwd * busy["forward"] + m * busy["local_step"]) / 1e3
+            extra = {"attention_trained": True, "unit_busy_ms": busy,
+                     "device_busy_s_estimate": est,
+                     "device_idle_share_estimate": 1.0 - est / report[
+                         "wall_s"]}
+            del before, after
+        del dr, state
+        torch.cuda.empty_cache()
+        out[label] = {**report, "set_up_s": set_up_s, "launches": launches,
+                      "phases_s": dict(phases), **extra}
+        emit({"phase": "fed_dryrun", "run": label, **out[label]})
+
+    laps["runs_s"] = time.perf_counter() - t_phase - laps["clients_16_s"]
+
+    # the path's kernels at its shapes
+    p = 1_640_448                      # reduced phi3, padded to 2,048
+    checks = [
+        ("lsh_projection", dict(m=m, p=p, bits=128),
+         lambda m=m: check_lsh(torch, m, p, 128, gen)) for m in (256, 1024)
+    ] + [
+        ("selection", dict(m=256, bits=128, n=8),
+         lambda: check_selection(torch, 256, 128, 8, gen)),
+        ("selection_tiled", dict(m=1024, bits=128, n=8),
+         lambda: check_selection_tiled(torch, 1024, 128, 8, gen)),
+        ("selection_ann_grouped", dict(m=256, bits=128, n=8, kind="random",
+                                       prefix_bits=10),
+         lambda: check_selection_ann_grouped(torch, 256, 128, 8, gen)),
+        ("exchange", dict(m=256, n=8, r=8, c=1024),
+         lambda: check_exchange(torch, 256, 8, 8, 1024, gen)),
+        ("exchange_streamed", dict(m=1024, n=8, r=8, c=1024),
+         lambda: check_exchange_streamed(torch, 1024, 8, 8, 1024, gen)),
+    ] + [
+        ("flash_attention", dict(b=8, s=32, h=4, kv=1, dh=64, causal=True,
+                                 dtype=str(dt)[6:]),
+         lambda dt=dt: check_flash(torch, 8, 32, 32, 64, True, dt, gen,
+                                   heads=(4, 1)))
+        for dt in (torch.float32, torch.bfloat16)
+    ]
+    for name, shape, run in checks:
+        res = run()
+        emit({"phase": "kernel_check", "path": "fed_dryrun", "kernel": name,
+              "shape": shape, **res})
+        torch.cuda.empty_cache()
+    laps["kernel_checks_s"] = (time.perf_counter() - t_phase
+                               - laps["runs_s"] - laps["clients_16_s"])
+    emit({"phase": "fed_dryrun", "run": "laps", **laps})
+    return out
+
+
 LEAK_FIXTURES = (("leak_announce_field.py", "taint-sink"),
                  ("leak_metric_tap.py", "taint-host-read"),
                  ("leak_served_private.py", "taint-sink"))
@@ -2922,6 +3289,13 @@ def main() -> int:
     emit({"phase": "main_path_launches", "run": "sharding",
           **sharding_path(torch, kernels)})
     lap("sharding")
+
+    # 7b. the federation with transformer clients: the dry run's period
+    # at 256 and 1,024 clients, attention trained, flash launches, card
+    # against CPU, the path's kernels at its shapes
+    torch.cuda.empty_cache()
+    fed_dryrun_path(torch, kernels)
+    lap("fed_dryrun")
 
     # 8. the analysis gate: contract launches, shared-memory mirrors, the
     # taint targets through the kernels, the leak fixtures

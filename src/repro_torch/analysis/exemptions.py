@@ -19,5 +19,6 @@ from __future__ import annotations
 # peer ids (protocol, baselines), round telemetry, history and wall time
 # (rounds), the ANN occupancy report, the service's fault plan and period
 # report (driver), the staleness exp on the CPU (membership), the served
-# reply, the LM launcher's tokens, member ids and timing, and checkpoints
-EXPECTED_HOST_OK = 21
+# reply, the LM launcher's tokens, member ids and timing, the federation
+# dry run's clock, and checkpoints
+EXPECTED_HOST_OK = 22

@@ -10,6 +10,7 @@ from repro_torch.core.rounds import (  # noqa: F401
     RoundProgram,
     Schedule,
     make_program,
+    make_segment_fn,
     program_round,
     resolve_schedule,
     run_rounds,

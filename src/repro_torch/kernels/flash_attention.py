@@ -47,6 +47,23 @@ MAX_HEAD_DIM = 256
 DTYPES = (torch.float32, torch.bfloat16)
 
 
+def attention_pairs(sq: int, sk: int, causal: bool) -> int:
+    """(query, key) pairs the attention must score: all of them, or with
+    the top-left causal mask sum_i min(i + 1, Sk) (S(S+1)/2 at Sq = Sk)."""
+    if not causal:
+        return sq * sk
+    full = min(sq, sk)
+    return full * (full + 1) // 2 + (sq - full) * sk
+
+
+def attention_flops(b: int, h: int, sq: int, sk: int, dh: int,
+                    causal: bool) -> int:
+    """The kernel's work: two products of 2 * dh FLOPs for every scored
+    (query, key) pair of every head, 4 * B * H * pairs * dh (its bound's
+    operations in chip_smoke.py)."""
+    return 4 * b * h * attention_pairs(sq, sk, causal) * dh
+
+
 def plain_gqa_attention(q, k, v, causal, scale):
     """`gqa_attention` through the plain version, as the JAX wrapper maps
     it onto the (N, S, dh) layout: KV heads repeated to H, heads moved

@@ -88,6 +88,13 @@ SINGLE_KERNEL = CudaKernel(
      ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p])
 
 
+def projection_flops(m: int, p: int, bits: int) -> int:
+    """The Eq. 5 sums' work as a product: 2 * M * P * bits FLOPs, x (M, P)
+    against the +-1 matrix (P, bits) (its bound's f32 operations in
+    chip_smoke.py; the hash that makes R runs on the integer pipe)."""
+    return 2 * m * p * bits
+
+
 def split_len(p: int) -> int:
     """L, the parameters per split, for a P that is a multiple of CHUNK:
     the longest of SPLIT_LENS with P / L >= NUM_SMS, else the shortest."""

@@ -20,11 +20,16 @@ For each (arch, shape) it reports:
     2 repetitions of the block pattern, and rebuilt as base + reps * body
     (body = count(2) - count(1)), the JAX dryrun's "scan2". The counter
     sees matrix products and attention (mm, bmm, addmm, baddbmm,
-    convolution, SDPA), not elementwise work. Time loops are counted
-    step by step (the port's sLSTM runs a Python loop), which JAX's
-    counts, once per `lax.scan` body, are not. FLOPs per device are the
-    global count over the mesh's devices: the partition is taken as even,
-    and work a real partition would replicate is not seen;
+    convolution, SDPA), not elementwise work. The time loops whose trips
+    grow with the sequence, xLSTM's sLSTM steps (S trips) and mLSTM
+    chunks (S / 256), are rebuilt the same way: at each repetition count,
+    from counts with one loop at two trips and every loop at one
+    (`models.xlstm.cut_loops`), as count(1) + (trips - 1) * (count(2) -
+    count(1)) per loop, which equals the step-by-step count exactly
+    (`tests/test_torch_dryrun_loops.py`); a loop costs the same each
+    trip. FLOPs per device are the global count over the mesh's devices:
+    the partition is taken as even, and work a real partition would
+    replicate is not seen;
   - roofline terms on one NVIDIA H100 SXM (NVIDIA's data sheet, as
     `chip_smoke.py` uses them): compute_s = FLOPs per device at the bf16
     tensor-core peak, memory_s = the bytes per device above read once
@@ -55,6 +60,7 @@ import torch
 from repro_torch.configs import SHAPES, get_config, list_archs, supports_shape
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.launch.mesh import axis_sizes, make_production_mesh
+from repro_torch.models import xlstm
 from repro_torch.models.transformer import (init_cache, meta_params,
                                             param_specs)
 from repro_torch.optim import adamw
@@ -178,21 +184,52 @@ def _with_reps(cfg: ModelConfig, reps: int) -> ModelConfig:
         cfg, num_layers=reps * len(cfg.block_pattern) + cfg.pattern_tail)
 
 
+def loop_trips(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, int]:
+    """The trips of each time loop of one step ({} in decode, one token):
+    "slstm" S steps, "mlstm" S / MLSTM_CHUNK chunks (one chunk when S is
+    not a multiple), for the block types the config has."""
+    if shape.mode == "decode":
+        return {}
+    s, chunk = shape.seq_len, xlstm.MLSTM_CHUNK
+    trips = {"S": ("slstm", s), "M": ("mlstm", s // chunk if s % chunk == 0
+                                      else 1)}
+    return dict(trips[t] for t in dict.fromkeys(cfg.block_pattern)
+                if t in trips)
+
+
+def _loops_rebuilt(cfg: ModelConfig, shape: ShapeConfig, trips, remat):
+    """The step's count at this config's depth with every time loop
+    rebuilt from one and two trips (`loop_trips`)."""
+    one = {loop: 1 for loop in trips}
+    with xlstm.cut_loops(**one):
+        base = step_flops(cfg, shape, remat=remat)
+    total = base
+    for loop, n in trips.items():
+        if n > 1:
+            with xlstm.cut_loops(**{**one, loop: 2}):
+                total += (n - 1) * (step_flops(cfg, shape, remat=remat)
+                                    - base)
+    return total
+
+
 def counted_flops(cfg: ModelConfig, shape: ShapeConfig, *,
                   remat: str = "block") -> Dict[str, Any]:
     """The step's FLOPs at full depth, rebuilt from counts at 1 and 2
     pattern repetitions (base + reps * body); one count when the config
-    has fewer than two repetitions."""
+    has fewer than two repetitions. Each count rebuilds the time loops
+    from one and two trips (`loop_trips`)."""
+    trips = loop_trips(cfg, shape)
     reps = cfg.pattern_reps
+    loops = {"counted_trips": [1, 2], "loop_trips": trips} if trips else {}
     if reps < 2:
-        total = step_flops(cfg, shape, remat=remat)
-        return {"flops": float(total), "counted_reps": [reps]}
-    one = step_flops(_with_reps(cfg, 1), shape, remat=remat)
-    two = step_flops(_with_reps(cfg, 2), shape, remat=remat)
+        total = _loops_rebuilt(cfg, shape, trips, remat)
+        return {"flops": float(total), "counted_reps": [reps], **loops}
+    one = _loops_rebuilt(_with_reps(cfg, 1), shape, trips, remat)
+    two = _loops_rebuilt(_with_reps(cfg, 2), shape, trips, remat)
     body = two - one
     return {"flops": float(one + (reps - 1) * body),
             "body_flops": float(body), "base_flops": float(one - body),
-            "counted_reps": [1, 2]}
+            "counted_reps": [1, 2], **loops}
 
 
 def memory_per_device(cfg: ModelConfig, shape: ShapeConfig,

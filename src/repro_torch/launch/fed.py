@@ -24,14 +24,31 @@ the JAX package. `--service` runs the continuous federation service
 instead (`run_service_federation`, `repro_torch.service`): reselection
 periods with churn, per-client gossip budgets, staleness-discounted
 selection, checkpoints a killed service resumes from bit for bit, and
-deterministic fault injection. The JAX launcher's sharded dry run is not
-ported yet.
+deterministic fault injection.
+
+`--dryrun` runs one WPFed reselection period with transformer clients
+(`dryrun_fed_round`): 256 by default, each a reduced phi3-medium-14b in
+bf16, on the card. The JAX launcher only lowers and compiles that period
+on its 16x16 mesh; here one card holds the whole federation, so the
+period runs. Its JSON has the JAX dry run's keys (`flops_per_device` the
+segment's FLOPs over the 16 data shards, `temp_bytes` the segment's peak
+allocation beyond state and data) and the port's own (`flops`, `wall_s`
+of the timed segment, `peak_bytes`, `state_bytes`):
+
+    PYTHONPATH=src python -m repro_torch.launch.fed --dryrun
+    PYTHONPATH=src python -m repro_torch.launch.fed --dryrun --clients 1024 \
+        --ref-mode public --tiling tiled
+    PYTHONPATH=src python -m repro_torch.launch.fed --dryrun --device cpu \
+        --clients 16
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import json
+import time
+from typing import Any, Callable, Dict, NamedTuple
 
 import torch
 
@@ -39,8 +56,8 @@ from repro_torch.configs.paper_models import (FedConfig, PAPER_FED_OPTIMA,
                                               aecg_tcn, mnist_cnn,
                                               recommended_dedupe, seeg_tcn)
 from repro_torch.core import (evaluate, init_state, instrument_program,
-                              resolve_schedule, resolve_threat, run_rounds,
-                              wpfed_program)
+                              make_segment_fn, resolve_schedule,
+                              resolve_threat, run_rounds, wpfed_program)
 from repro_torch.core.adversary import THREATS
 from repro_torch.core.chain import Blockchain, lsh_code_hex, sha256_commit
 from repro_torch.data import DATASETS
@@ -51,6 +68,8 @@ from repro_torch.optim import adam
 from repro_torch.service import (ServiceConfig, init_service_state,
                                  parse_events, parse_fault_spec,
                                  resume_service, run_service)
+from repro_torch.tree import (dotted_names, flatten_dotted, tree_leaves,
+                              tree_map, tree_unflatten)
 
 MODEL_FOR = {"mnist": mnist_cnn, "aecg": aecg_tcn, "seeg": seeg_tcn}
 
@@ -206,6 +225,302 @@ def run_service_federation(dataset: str = "mnist", periods: int = 3,
     return state, chain, history
 
 
+# ---------------------------------------------------------------------------
+# the dry run: one reselection period with transformer clients
+# ---------------------------------------------------------------------------
+def lm_client_fns(cfg, device, dtype=torch.bfloat16, draw_device=None):
+    """(apply_fn, init_fn) of a transformer client in the federation.
+
+    A client's params are the flat {dotted name: tensor} dict the round
+    takes (`tree.flatten_dotted` of the `init_params` tree: sorted by
+    `ops.leaf_key`, the names give `jax.tree.leaves` order, so the Eq. 5
+    codes of the same weights equal the JAX package's). `apply_fn(params,
+    tokens)` rebuilds the tree and returns the last position's logits
+    (B, V) in f32, classifying the next token, as the JAX dry run does.
+    Under no_grad (the exchange) attention takes the flash kernel; with
+    grad enabled (the update) the differentiable route, since the kernel
+    has no backward. `init_fn(generator)` draws one client's
+    `init_params(cfg, g, dtype)` with a generator on `draw_device`
+    (default `device`) seeded by one draw from `generator`: a thousand
+    reduced-phi3 clients are 1.6e9 truncated normals, tens of seconds on
+    a host's generator (`PERF.md`). The weights then follow the
+    generator of `draw_device`, so two runs draw the same weights only
+    when both draw there."""
+    from repro_torch.models.transformer import forward, init_params, \
+        meta_params
+    like = meta_params(cfg)
+    names = dotted_names(like)
+    dev = torch.device(device)
+    draw = torch.device(draw_device) if draw_device is not None else dev
+
+    def apply_fn(params, tokens):
+        tree = tree_unflatten(like, [params[n] for n in names])
+        logits, _ = forward(cfg, tree, tokens,
+                            differentiable=torch.is_grad_enabled())
+        return logits[:, -1, :].to(torch.float32)
+
+    def init_fn(generator):
+        seed = int(torch.randint(0, 2 ** 62, (), generator=generator))
+        g = torch.Generator(device=draw)
+        g.manual_seed(seed)
+        return {k: v.to(dev) for k, v in flatten_dotted(
+            init_params(cfg, g, dtype)).items()}
+
+    return apply_fn, init_fn
+
+
+class FedDryrun(NamedTuple):
+    """A dry run's federation, ready to run (`prepare_fed_dryrun`)."""
+    cfg: Any                   # the clients' ModelConfig
+    fed: FedConfig
+    apply_fn: Callable
+    optimizer: Any
+    segment_fn: Callable       # one reselection period
+    state: Any                 # FedState of the M clients
+    data: Dict[str, torch.Tensor]
+    device: torch.device
+    shards: int                # the mesh's data axis: JAX's client shards
+    report: Dict[str, Any]     # the JAX dry run's leading JSON keys
+
+
+DRYRUN_SEQ, DRYRUN_REF, DRYRUN_LOCAL = 32, 8, 64
+
+
+def prepare_fed_dryrun(num_clients: int = 256,
+                       arch: str = "phi3-medium-14b",
+                       backend: str = "kernel", ref_mode: str = "personal",
+                       tiling: str = "auto", reselect_every: int = 1,
+                       attack: str = "none", attack_frac: float = 0.5,
+                       attack_start: int = -1, *, device=None, seed: int = 0,
+                       draw_device=None) -> FedDryrun:
+    """The JAX dry run's federation on `device` (the card when None):
+    `get_config(arch).reduced()` clients in bf16, `FedConfig(N 8, top_k
+    4, local_steps 1, lsh_bits 128, ref_batch 8)` with `backend` for the
+    selection (and the exchange, which takes "kernel" when the selection
+    is "ann"), `recommended_dedupe(ref_mode)`, `attack` instrumenting
+    the program (seed 1), and data drawn from `seed` on `draw_device`
+    (default `device`): x_train (M, 64, 32), y_train (M, 64), x_ref
+    (M, 8, 32), y_ref (M, 8), tokens and labels in [0, vocab). The
+    clients are drawn by `lm_client_fns`' init_fn from a generator
+    seeded `seed`. On the CPU, "kernel" takes the kernels' plain
+    versions, as every wrapper does for CPU tensors. M must divide by
+    the mesh's data axis (16), whose shards JAX lays the clients on."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import axis_sizes, make_production_mesh
+    dev = resolve_device(device)
+    mesh = make_production_mesh()
+    shards = axis_sizes(mesh)["data"]
+    if num_clients % shards:
+        raise ValueError(f"{num_clients} clients do not divide over the "
+                         f"mesh's {shards} data shards")
+    cfg = get_config(arch).reduced()
+
+    def on_dev(b):                  # the plain versions on the CPU
+        return "auto" if b == "kernel" and dev.type != "cuda" else b
+
+    fed = FedConfig(num_clients=num_clients, num_neighbors=8, top_k=4,
+                    local_steps=1, lsh_bits=128, ref_batch=DRYRUN_REF,
+                    selection_backend=on_dev(backend),
+                    exchange_backend=on_dev("kernel" if backend == "ann"
+                                            else backend),
+                    ref_mode=ref_mode, selection_tiling=tiling,
+                    exchange_tiling=tiling,
+                    dedupe_rankings=recommended_dedupe(ref_mode))
+    apply_fn, init_fn = lm_client_fns(cfg, dev, draw_device=draw_device)
+    opt = adam(fed.lr)
+    program = wpfed_program(apply_fn, opt, fed)
+    if attack != "none":
+        program = instrument_program(program, resolve_threat(
+            attack, num_clients=num_clients, attacker_frac=attack_frac,
+            init_fn=init_fn, seed=1,
+            start_round=None if attack_start < 0 else attack_start))
+    state = init_state(init_fn, opt, fed, seed)
+    draw = torch.device(draw_device) if draw_device is not None else dev
+    g = torch.Generator(device=draw)
+    g.manual_seed(seed)
+    m, v = num_clients, cfg.vocab_size
+
+    def ints(*shape):
+        return torch.randint(0, v, shape, generator=g, device=draw,
+                             dtype=torch.int32).to(dev)
+
+    data = {"x_train": ints(m, DRYRUN_LOCAL, DRYRUN_SEQ),
+            "y_train": ints(m, DRYRUN_LOCAL),
+            "x_ref": ints(m, DRYRUN_REF, DRYRUN_SEQ),
+            "y_ref": ints(m, DRYRUN_REF)}
+    report = {"fed_round_clients": m, "client_arch": cfg.name,
+              "ref_mode": ref_mode, "tiling": tiling,
+              "reselect_every": reselect_every, "attack": attack,
+              "mesh": "x".join(map(str, mesh.shape))}
+    return FedDryrun(cfg, fed, apply_fn, opt,
+                     make_segment_fn(program, reselect_every), state, data,
+                     dev, shards, report)
+
+
+def _on_meta(tree):
+    return tree_map(lambda t: torch.empty_like(t, device="meta"), tree)
+
+
+def client_flops(dr: FedDryrun) -> Dict[str, int]:
+    """FLOPs of one client's forward on a reference batch (R, 32) as the
+    exchange runs it, and of one local step (`protocol.local_update`: the
+    forwards on a minibatch and the reference batch, the backward, the
+    Adam update), each counted alone by FlopCounterMode on meta, where
+    nothing runs and every device counts alike. The counter sees matrix
+    products, not elementwise work. The exchange's attention is the flash
+    kernel, whose work is its formula, 4 * B * H * (causal pairs) * dh
+    (`flash_attention.attention_flops`, the bound's work in chip_smoke.py)
+    in place of its plain version's count; the update's attention is the
+    plain differentiable route and counts as it runs."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.core.protocol import client, local_update
+    from repro_torch.kernels.flash_attention import (attention_flops,
+                                                     plain_gqa_attention)
+    cfg, fed = dr.cfg, dr.fed
+    params = _on_meta(client(dr.state.params, 0))
+    tokens = torch.empty((fed.ref_batch, DRYRUN_SEQ), dtype=torch.int32,
+                         device="meta")
+    with torch.no_grad(), FlopCounterMode(display=False) as fwd:
+        dr.apply_fn(params, tokens)
+    dtype = next(iter(params.values())).dtype
+    dh = cfg.resolved_head_dim
+    q = torch.empty((fed.ref_batch, DRYRUN_SEQ, cfg.num_heads, dh),
+                    dtype=dtype, device="meta")
+    kv = torch.empty((fed.ref_batch, DRYRUN_SEQ, cfg.num_kv_heads, dh),
+                     dtype=dtype, device="meta")
+    with FlopCounterMode(display=False) as plain:
+        plain_gqa_attention(q, kv, kv, True, 0.0)
+    if cfg.is_encdec or cfg.vision_tokens:
+        raise ValueError(f"{cfg.name}: the dry run's clients are decoder-"
+                         "only token models")
+    flash = [cfg.block_pattern[i % len(cfg.block_pattern)]    # causal "A"
+             for i in range(cfg.num_layers)].count("A")
+    forward = (fwd.get_total_flops()
+               + flash * (attention_flops(fed.ref_batch, cfg.num_heads,
+                                          DRYRUN_SEQ, DRYRUN_SEQ, dh, True)
+                          - plain.get_total_flops()))
+    mb = min(fed.local_batch, DRYRUN_LOCAL)
+    data_i = {"x_train": torch.empty((DRYRUN_LOCAL, DRYRUN_SEQ),
+                                     dtype=torch.int32, device="meta"),
+              "y_train": torch.empty((DRYRUN_LOCAL,), dtype=torch.int32,
+                                     device="meta"),
+              "x_ref": tokens}
+    with FlopCounterMode(display=False) as step:
+        local_update(dr.apply_fn, dr.optimizer,
+                     dataclasses.replace(fed, local_steps=1), params,
+                     _on_meta(client(dr.state.opt_state, 0)),
+                     data_i, torch.empty((fed.ref_batch, cfg.vocab_size),
+                                         device="meta"),
+                     torch.empty((), dtype=torch.bool, device="meta"),
+                     torch.empty((1, mb), dtype=torch.int64, device="meta"))
+    return {"forward": int(forward), "local_step": int(step.get_total_flops())}
+
+
+def segment_flops(dr: FedDryrun) -> Dict[str, int]:
+    """The segment's FLOPs ("total"), by part ("parts") and per unit
+    ("forward", "local_step"): `reselect_every` exchanges of M own
+    forwards (personal mode also M * N neighbour forwards) and updates of
+    M * local_steps local steps (`client_flops`; every client computes
+    its update), and one announce, whose LSH projection is 2 * M * P *
+    bits (`lsh_projection.projection_flops`, P the padded parameter
+    count). The selection kernels' Hamming work is integer and the
+    exchange kernel's elementwise, so neither adds FLOPs, as no
+    elementwise op does under FlopCounterMode."""
+    from repro_torch.kernels import lsh_projection, ops
+    fed, m = dr.fed, dr.fed.num_clients
+    per = client_flops(dr)
+    g = dr.report["reselect_every"]
+    n = min(fed.num_neighbors, m - 1)
+    fwd = m + (m * n if fed.ref_mode == "personal" else 0)
+    p = sum(t[0].numel() for t in dr.state.params.values())
+    p += (-p) % ops.CHUNK
+    parts = {"forwards": g * fwd * per["forward"],
+             "local_steps": g * m * fed.local_steps * per["local_step"],
+             "lsh_projection": lsh_projection.projection_flops(
+                 m, p, fed.lsh_bits)}
+    return {"total": sum(parts.values()), "parts": parts, **per}
+
+
+def _nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+def run_fed_dryrun(dr: FedDryrun, *, warmup: int = 1, log=print):
+    """Run `warmup` segments (the first at a size grows the allocator's
+    pool and picks the kernels' plans; each is timed into `warmup_s`),
+    then the timed one (`wall_s`; with warmup 0 it is itself the first),
+    and return (the JSON report, the final state). `flops_per_device` is
+    `flops` over the mesh's 16 data shards, as JAX splits the clients
+    over "data" and leaves "model" unsharded; `temp_bytes` the timed
+    segment's peak allocation beyond what was allocated as it began
+    (its input state, the data, and what the caller holds, such as the
+    initial state after a warm-up), `peak_bytes` that peak itself; both
+    None off the card."""
+    state, r0, warm_s = dr.state, 0, []
+    cuda = dr.device.type == "cuda"
+    if cuda:            # a segment ends synchronised, so once is enough
+        torch.cuda.synchronize(dr.device)  # analysis: host-ok the clock
+    for _ in range(warmup):
+        t0 = time.perf_counter()
+        state, _ = dr.segment_fn(state, dr.data, r0)
+        warm_s.append(time.perf_counter() - t0)
+        r0 += dr.report["reselect_every"]
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dr.device)
+        start = torch.cuda.memory_allocated(dr.device)
+    state_bytes = _nbytes(state)
+    data_bytes = _nbytes(dr.data)
+    t0 = time.perf_counter()
+    state, metrics = dr.segment_fn(state, dr.data, r0)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dr.device) if cuda else None
+    flops = segment_flops(dr)
+    report = {**dr.report, "flops_per_device": flops["total"] / dr.shards,
+              "temp_bytes": peak - start if cuda else None, "ok": True,
+              "device": str(dr.device), "flops": flops["total"],
+              "flops_by_part": flops["parts"],
+              "flops_per_forward": flops["forward"],
+              "flops_per_local_step": flops["local_step"],
+              "warmup_segments": warmup, "warmup_s": warm_s,
+              "wall_s": wall,
+              "round_s": [m["seconds"] for m in metrics],
+              "peak_bytes": peak, "state_bytes": state_bytes,
+              "data_bytes": data_bytes}
+    if log is not None:
+        log(json.dumps(report, indent=1))
+    return report, state
+
+
+def dryrun_fed_round(num_clients: int = 256, arch: str = "phi3-medium-14b",
+                     backend: str = "kernel", ref_mode: str = "personal",
+                     tiling: str = "auto", reselect_every: int = 1,
+                     attack: str = "none", attack_frac: float = 0.5,
+                     attack_start: int = -1, *, device=None, seed: int = 0,
+                     warmup: int = 1, log=print):
+    """One WPFed reselection period with reduced-transformer clients,
+    run on one card (the port of `repro/launch/fed.py:dryrun_fed_round`;
+    the arguments are the JAX function's, plus `device`, `seed` and
+    `warmup`).
+
+    This is a run of the period, not a compile. The JAX dry run lowers
+    the period onto the 16x16 mesh with the client axis over "data" and
+    reads XLA's cost and memory analyses; eager PyTorch has no compiled
+    program to analyse, and one card holds the whole federation (1,024
+    clients of 1.64e6 bf16 parameters with f32 Adam moments are 17 GB),
+    so the port runs it: every kernel of the path (batched LSH, the
+    selection of `backend` and `tiling`, the exchange, flash attention
+    in the exchange's forwards) at these shapes, the update through
+    autograd. `flops` is counted apart from the timed run
+    (`segment_flops`), the same on every device. Prints and returns the
+    report (`run_fed_dryrun`)."""
+    dr = prepare_fed_dryrun(num_clients, arch, backend, ref_mode, tiling,
+                            reselect_every, attack, attack_frac,
+                            attack_start, device=device, seed=seed)
+    return run_fed_dryrun(dr, warmup=warmup, log=log)[0]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--dataset", default="mnist",
@@ -213,6 +528,9 @@ def main(argv=None):
     ap.add_argument("--rounds", type=int, default=10)
     ap.add_argument("--clients", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dryrun", action="store_true",
+                    help="run one 256-client WPFed segment with reduced-"
+                         "transformer clients (dryrun_fed_round)")
     ap.add_argument("--backend", default="auto",
                     choices=["auto", "kernel", "oracle", "ann"],
                     help="kernel: the CUDA kernels; oracle: their plain "
@@ -278,6 +596,17 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device)")
     args = ap.parse_args(argv)
+    if args.dryrun:
+        sched = resolve_schedule(args.schedule, args.reselect_every)
+        dryrun_fed_round(num_clients=args.clients or 256,
+                         backend="kernel" if args.backend == "auto"
+                         else args.backend,  # "ann" runs the ann path
+                         ref_mode=args.ref_mode, tiling=args.tiling,
+                         reselect_every=sched.reselect_every,
+                         attack=args.attack, attack_frac=args.attack_frac,
+                         attack_start=args.attack_start, device=args.device,
+                         seed=args.seed)
+        return
     if args.service:
         _, _, history = run_service_federation(
             args.dataset, periods=args.periods,

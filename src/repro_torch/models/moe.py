@@ -8,9 +8,9 @@ Per call, over the T = B * S flattened tokens:
      `jax.lax.top_k` orders them (`torch.topk` promises no order on ties).
   2. the tokens are cut into G = `_NUM_GROUPS` groups of T / G (G = 1
      when G does not divide T), each dispatched on its own with its own
-     capacity C (`set_dispatch_spec`; the JAX launcher sets G to the
-     data shards so that a group's scatter stays on its device; no
-     launcher of the port sets it yet).
+     capacity C (`set_dispatch_spec`). No launcher sets G > 1, in the JAX
+     package or here: the JAX dryrun resets it to None (G = 1); the
+     tests hold G > 1 against JAX.
   3. in a group (`_dispatch_ffn`), each slot's position in its expert by
      a stable sort over the (T*k,) assignments (`_position_in_expert`);
      ids outside [0, E_here) (experts another rank owns) and slots past C

@@ -11,8 +11,16 @@ Prefill:
     `MLSTM_CHUNK` (one chunk when S is not a multiple of it: the chunking
     sets both the rounding and the peak memory, so it is the JAX
     package's). Decode is the O(1) recurrent update of each cell.
+
+Both loops' trip counts grow with the sequence. `cut_loops` lets the
+dryrun (`launch/dryrun.py`) count a step's FLOPs from one and two trips
+of each loop: on `meta` tensors (shapes only) a cut loop runs its first
+trips and repeats its last output to the full length. Tensors on any
+other device never take the cut.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -23,6 +31,26 @@ from repro_torch.tree import P
 
 NEG_INF = -1e30
 M_INIT = -30.0                  # the stabiliser's start: exp(m) ~ 0
+
+# trips of the sLSTM step loop / the mLSTM chunk loop on meta (None: all)
+_CUT = {"slstm": None, "mlstm": None}
+
+
+@contextlib.contextmanager
+def cut_loops(slstm: int = None, mlstm: int = None):
+    """Within the block, run at most `slstm` sLSTM steps and `mlstm`
+    mLSTM chunks on meta tensors (None: every trip)."""
+    old = dict(_CUT)
+    _CUT.update(slstm=slstm, mlstm=mlstm)
+    try:
+        yield
+    finally:
+        _CUT.update(old)
+
+
+def _trips(loop: str, n: int, x: torch.Tensor) -> int:
+    cut = _CUT[loop]
+    return n if cut is None or x.device.type != "meta" else min(n, cut)
 
 
 # ===========================================================================
@@ -72,9 +100,10 @@ def slstm_forward(cfg: ModelConfig, p, x, state=None):
     wx = torch.einsum("bsd,gde->gbse", x.to(torch.float32),
                       p["w"].to(torch.float32))           # (4,B,S,D)
     hs = []
-    for t in range(s):
+    for t in range(_trips("slstm", s, x)):
         state = _slstm_step(cfg, p, state, wx[:, :, t])
         hs.append(state[0])
+    hs += hs[-1:] * (s - len(hs))                 # a cut loop (meta only)
     out = torch.stack(hs, dim=1).to(x.dtype) @ p["w_out"]
     return out, state
 
@@ -155,7 +184,8 @@ def mlstm_forward(cfg: ModelConfig, p, x, state=None):
 
     C_p, n_p, m_p = state["C"], state["n"], state["m"]
     hs = []
-    for c0 in range(0, s, L):
+    starts = range(0, s, L)
+    for c0 in starts[:_trips("mlstm", len(starts), x)]:
         q_b, k_b, v_b = (a[:, c0:c0 + L] for a in (qf, kf, vf))
         li, lf = log_i[:, c0:c0 + L], log_f[:, c0:c0 + L]  # (B,L,H)
         fcs = torch.cumsum(lf, dim=1)                      # inclusive
@@ -188,6 +218,7 @@ def mlstm_forward(cfg: ModelConfig, p, x, state=None):
         n_p = decay[..., None] * n_p + torch.einsum(
             "bsh,bshd->bhd", wexp, k_b)
         m_p = m_new
+    hs += hs[-1:] * (len(starts) - len(hs))       # a cut loop (meta only)
     out_h = torch.cat(hs, dim=1).reshape(b, s, -1).to(x.dtype) * z
     return out_h @ p["w_down"], {"C": C_p, "n": n_p, "m": m_p}
 

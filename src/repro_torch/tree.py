@@ -12,7 +12,7 @@ as one leaf, as the JAX package's spec trees treat `PartitionSpec`.
 """
 from __future__ import annotations
 
-from typing import Any, Iterator, List, Tuple
+from typing import Any, Dict, Iterator, List, Tuple
 
 
 class P(tuple):
@@ -79,6 +79,19 @@ def tree_paths(tree, path: Tuple[str, ...] = ()) -> Iterator[
 def tree_leaves(tree) -> List[Any]:
     """The leaves in JAX leaf order."""
     return [leaf for _, leaf in tree_paths(tree)]
+
+
+def dotted_names(tree) -> List[str]:
+    """The leaves' dotted names ("layers.0.attn.wq": dict keys and
+    sequence indices joined by dots), in JAX leaf order."""
+    return [".".join(seg[2:] for seg in path) for path, _ in tree_paths(tree)]
+
+
+def flatten_dotted(tree) -> Dict[str, Any]:
+    """A nested tree -> {dotted name: leaf}, in JAX leaf order. Sorted by
+    `kernels.ops.leaf_key`, the names keep that order, so the flat dict
+    is what the federation's round takes as one client's params."""
+    return dict(zip(dotted_names(tree), tree_leaves(tree)))
 
 
 def tree_unflatten(like, leaves):

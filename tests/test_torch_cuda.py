@@ -1214,3 +1214,61 @@ def test_analysis_gate_on_the_card(cuda):
     assert gate["estimator_checks"] > 0
     assert {"lsh_projection", "selection", "exchange"} <= set(
         gate["taint_kernels"])
+
+
+@pytest.mark.cuda
+def test_fed_dryrun_segment_matches_the_cpu(cuda, monkeypatch):
+    """The federation dry run's segment at 16 clients, weights and data
+    drawn on the CPU, on the card and on the CPU: the same ids, flops and
+    has_target; flash launched 2 * (M + M * N) times (the exchange's
+    forwards, 2 layers) and never in the update. Within the limits
+    `chip_smoke.py` holds the same pair to (FED16_LIMITS, set from sound
+    runs on an H100): the relative L2 distance ||card - cpu|| / ||cpu||
+    of the worst leaf of the new Adam moments m and v (after a first
+    step they hold the gradient: m = (1 - b1) g, v = (1 - b2) g^2) and
+    of the params' update p1 - p0; the share of valid-mask entries that
+    differ; the distance of target_ref over the clients whose masks
+    agree, of l_ij and of mean_neighbor_loss."""
+    from repro_torch.core import protocol
+    from repro_torch.launch import fed as fed_launch
+    limits = {"m": 0.05, "v": 0.05, "update": 0.5, "valid_mask_differ": 0.05,
+              "target_ref": 0.02, "l_ij": 1e-3, "mean_neighbor_loss": 1.5e-4}
+    real, seen = protocol.exchange_phase, []
+
+    def exchange_phase(*args, **kw):
+        seen.append(real(*args, **kw))
+        return seen[-1]
+
+    monkeypatch.setattr(protocol, "exchange_phase", exchange_phase)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        dr = fed_launch.prepare_fed_dryrun(16, device=dev, draw_device="cpu")
+        n0 = flash_attention.KERNEL.launches
+        state, metrics = dr.segment_fn(dr.state, dr.data)
+        runs[dev] = (dr, state, metrics[0], seen[-1],
+                     flash_attention.KERNEL.launches - n0)
+    (dc, sc, mc, ec, lc), (dp, sp, mp, ep, lp) = runs["cuda"], runs["cpu"]
+    assert (lc, lp) == (2 * (16 + 16 * 8), 0)
+    assert torch.equal(mc["neighbor_ids"].cpu(), mp["neighbor_ids"])
+    assert fed_launch.segment_flops(dc) == fed_launch.segment_flops(dp)
+    assert torch.equal(ec.has_target.cpu(), ep.has_target)
+
+    def rel(a, b):
+        a, b = a.detach().cpu().float(), b.detach().float()
+        return float((a - b).norm() / b.norm())
+
+    p0 = dp.state.params
+    got = {part: max(rel(sc.opt_state[part][k], v)
+                     for k, v in sp.opt_state[part].items())
+           for part in ("m", "v")}
+    got["update"] = max(rel(sc.params[k].cpu().float() - p0[k].float(),
+                            v.float() - p0[k].float())
+                        for k, v in sp.params.items())
+    same = ec.valid_mask.cpu() == ep.valid_mask
+    got["valid_mask_differ"] = 1.0 - float(same.float().mean())
+    rows = same.all(-1)
+    got["target_ref"] = rel(ec.target_ref.cpu()[rows], ep.target_ref[rows])
+    got["l_ij"] = rel(ec.l_ij, ep.l_ij)
+    got["mean_neighbor_loss"] = rel(mc["mean_neighbor_loss"],
+                                    mp["mean_neighbor_loss"])
+    assert all(got[k] <= lim for k, lim in limits.items()), got
