@@ -149,7 +149,8 @@
    kernels' ms (each rank's alone, in turn), the plain version's s and
    the ranks' all-reduce ms, which gloo takes through the host.
    (b) expert parallelism on the same ranks, each making only its slice
-   of the weights (one generator per expert and FFN block): grok-1's MoE
+   of the weights (one generator per expert and FFN block), placed by
+   `moe_specs` on a (1, 4) mesh with the tokens (`_tp_moe`): grok-1's MoE
    layer at full width (E 8, D 6,144, F 32,768, 19.3 GB in f32; FFN
    width sharded), 4 x 2,048 tokens at capacity factor 4 (C = T, so
    nothing can drop), and kimi-k2's layer at full width (D 7,168, F
@@ -162,10 +163,39 @@
    each its spec's block of the global tensor. (d) Minitron-4B (4 of 32
    layers) placed on a (1, 1) NCCL mesh of this process: a 2,048-token
    prefill on the local shards launches flash 4 times, nothing else,
-   and gives the unplaced prefill's logits bit for bit. (e)
+   and gives the unplaced prefill's logits bit for bit, and so does the
+   tensor-parallel prefill on the placed params themselves. (e)
    `launch/dryrun.py` for kimi-k2 x train_4k on meta: bytes per device
    on 16x16, params + AdamW state equal to the spec arithmetic written
    out here (`spec_elems`). Every process group made is destroyed.
+6a. The tensor-parallel forward (`sharding_tp_path`, after sharding):
+   Minitron-4B (4 of 32 layers; 6 query and 2 K/V heads a rank, whole
+   heads), phi3-medium-14b (2 of 40; 10 query heads a rank, its 10 K/V
+   heads gathered) and recurrentgemma-2b (3 of 26, one R, R, L
+   repetition; 10 query heads over 1 K/V head, every head on every rank,
+   the R block split on its channels) at full width in f32, one prompt
+   of 2,048 tokens, first unsharded in this process (the second call
+   timed), then over 4 gloo ranks spawned on this card on a (1, 4)
+   ("data", "model") mesh (`sharding_tp_rank`): each rank draws the whole
+   params from the same seed and keeps its shards only; every
+   count is set to 0 just before each prefill and read just after, and
+   its collectives are recorded (`launch.dryrun.CollectiveCounter`);
+   Minitron-4B then decodes 4 teacher-forced tokens on the sharded
+   cache. The ranks' vocabulary shards of the logits, side by side, must
+   be within 1e-4 of the largest |logit| of the unsharded forward
+   (`TP_REL_TOL`; f32, the row-parallel sums over 4 ranks reordered),
+   each rank's collective bytes and counts equal to `tp_bytes` (written
+   out here from the head rule), flash launched once per "A" layer (4,
+   2, 0 a rank) and nothing else, and each rank's attention core at its
+   own head counts (phi3: 10 query heads, K/V taken one per query head)
+   within 2e-5 of the naive route on the same inputs (`tp_core_check`).
+   Gloo carries CUDA tensors through its
+   c10d ops, not through the functional collectives DTensor issues
+   (they segfault), so these ranks take the port's c10d transport.
+   Prints a `sharding_tp` line per model (errors, bytes, rank and
+   unsharded prefill ms, one gloo all-reduce of the row-parallel
+   payload in ms, peak GB per rank) and a "tensor-parallel prefill"
+   `main_path_launches` line.
 6b. The federation with transformer clients (`fed_dryrun_path`, after
    sharding, before the analysis gate): `launch/fed.py`'s dry run
    (`prepare_fed_dryrun`, `run_fed_dryrun`; reduced phi3-medium-14b
@@ -246,7 +276,8 @@
    process).
 9. Prints {"phase": "seconds", ...}, the wall seconds of each section
    (build, kernel checks, main paths, profiles, attack, baselines,
-   serve, families, train, sharding, fed_dryrun, analysis, service),
+   serve, families, train, sharding, sharding_tp, fed_dryrun, analysis,
+   service),
    then
    {"kernels": [...]}
    for every kernel of the paths driven (the
@@ -2079,8 +2110,9 @@ def shard_moe_tokens(torch, cfg):
 def sharding_rank(rank: int, world: int, plan: dict) -> dict:
     """One of the sharding phase's ranks (gloo, on cuda:0): its shard of
     the LSH vector through `sharded_lsh_code` (count set to 0 just
-    before, read just after); both MoE layers through `apply_moe_sharded`
-    on its slice of the weights; the local shards of Minitron-4B's params
+    before, read just after); both MoE layers on its slice of the
+    weights placed on a (1, world) mesh (`moe_forward`'s expert-parallel
+    path); the local shards of Minitron-4B's params
     (2 layers) placed on a (2, 2) ("data", "model") mesh."""
     import torch
     import torch.distributed as dist
@@ -2094,8 +2126,10 @@ def sharding_rank(rank: int, world: int, plan: dict) -> dict:
     from repro_torch.launch.mesh import make_device_mesh
     from repro_torch.models import moe
     from repro_torch.models.transformer import init_params, param_specs
-    from repro_torch.sharding import local_shape, place, to_local
+    from repro_torch.sharding import local_shape, place, placements, \
+        to_local, tp
     from repro_torch.tree import tree_paths
+    from torch.distributed.tensor import DTensor
     resolve_device("cuda")
     torch.cuda.set_device(0)
     out = {}
@@ -2152,12 +2186,18 @@ def sharding_rank(rank: int, world: int, plan: dict) -> dict:
     del padded
     torch.cuda.empty_cache()
 
-    # 2. expert parallelism: each rank makes its slice of the weights
-    moe.set_sharded_impl(dist.group.WORLD)
+    # 2. expert parallelism: each rank makes its slice of the weights,
+    # placed by `moe_specs` on a (1, world) mesh with the tokens
+    mesh = make_device_mesh((1, world), ("data", "model"), "cuda")
     for name in SHARD_MOE:
         cfg = shard_moe_cfg(name)
-        p = shard_moe_params(torch, name, cfg, rank, world)
-        x = shard_moe_tokens(torch, cfg)
+        specs, shapes = moe.moe_specs(cfg), moe.moe_shapes(cfg)
+        p = {k: DTensor.from_local(
+            v, mesh, placements(specs[k], mesh), run_check=False,
+            shape=shapes[k], stride=torch.empty(shapes[k], device="meta")
+            .stride()) for k, v in shard_moe_params(
+                torch, name, cfg, rank, world).items()}
+        x = tp.place_batch(shard_moe_tokens(torch, cfg), mesh)
         dist.barrier()
         torch.cuda.reset_peak_memory_stats()
         got, aux = moe.moe_forward(cfg, p, x)
@@ -2169,14 +2209,13 @@ def sharding_rank(rank: int, world: int, plan: dict) -> dict:
             moe.moe_forward(cfg, p, x)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
-        out[name] = {"out": got.cpu(), "load_balance": float(aux[
-            "load_balance"]), "dropped_frac": float(aux["dropped_frac"]),
+        out[name] = {"out": got.to_local().cpu(), "load_balance": float(
+            aux["load_balance"]), "dropped_frac": float(aux["dropped_frac"]),
             "ms": min(times), "peak_gb":
             torch.cuda.max_memory_allocated() / 1e9,
-            "wi": tuple(p["wi"].shape)}
+            "wi": tuple(p["wi"].to_local().shape)}
         del p, x, got
         torch.cuda.empty_cache()
-    moe.set_sharded_impl(None)
 
     # 3. the (2, 2) mesh: every local shard is its spec's block
     mesh = make_device_mesh((2, 2), ("data", "model"), "cuda")
@@ -2357,20 +2396,32 @@ def sharding_path(torch, kernels):
             got, _ = step(local, tokens)
             torch.cuda.synchronize()
             launches = {name: k.launches for name, k in kernels.items()}
+            # the tensor-parallel forward on the placed params themselves
+            for k in kernels.values():
+                k.launches = 0
+            got_tp, _ = step(placed, tokens)
+            torch.cuda.synchronize()
+            launches_tp = {name: k.launches for name, k in kernels.items()}
+            got_tp = got_tp.to_local()
         finally:
             dist.destroy_process_group()
     emit({"phase": "main_path_launches", "run": "sharding placed prefill",
           **launches})
-    if launches["flash_attention"] != 4 or any(
-            v for n, v in launches.items() if n != "flash_attention") \
-            or not torch.equal(got, plain):
-        raise AssertionError(f"the placed prefill must launch flash 4 times "
-                             f"and nothing else ({launches}) and give the "
-                             f"unplaced logits bit for bit")
+    emit({"phase": "main_path_launches",
+          "run": "tensor-parallel prefill, 1x1 nccl", **launches_tp})
+    for run, ls, lg in (("placed", launches, got),
+                        ("tensor-parallel", launches_tp, got_tp)):
+        if ls["flash_attention"] != 4 or any(
+                v for n, v in ls.items() if n != "flash_attention") \
+                or not torch.equal(lg, plain):
+            raise AssertionError(f"the {run} prefill must launch flash 4 "
+                                 f"times and nothing else ({ls}) and give "
+                                 f"the unplaced logits bit for bit")
     emit({"phase": "sharding_placed", "arch": cfg.name, "num_layers": 4,
           "mesh": "1x1 nccl", "leaves": len(tree_leaves(placed)),
-          "logits_bitwise_equal": True})
-    del params, placed, local, plain, got
+          "logits_bitwise_equal": True,
+          "tensor_parallel_logits_bitwise_equal": True})
+    del params, placed, local, plain, got, got_tp
     torch.cuda.empty_cache()
 
     # 4. the dryrun on meta; params + optimizer against the spec
@@ -2392,6 +2443,321 @@ def sharding_path(torch, kernels):
         "params_plus_optimizer_equal_spec_arithmetic": True})
     return {"lsh_single": sum(r["lsh"]["launches"] for r in ranks),
             "flash_attention": launches["flash_attention"]}
+
+
+# the tensor-parallel forward on a (1, 4) ("data", "model") mesh of 4
+# gloo ranks: (arch, layers kept) at full width, f32, one 2,048-token
+# prompt; Minitron-4B also decodes 4 teacher-forced tokens
+TP_CASES = (("minitron-4b", 4), ("phi3-medium-14b", 2),
+            ("recurrentgemma-2b", 3))
+TP_PROMPT, TP_DECODE, TP_SEED = 2048, 4, 11
+# logits: max abs error over max |logit| of the unsharded forward (f32;
+# the row-parallel sums over 4 ranks add in another order)
+TP_REL_TOL = 1e-4
+
+
+def tp_draw(torch, cfg):
+    """Minitron-style params, the prompt and the decode tokens, drawn on
+    the card from TP_SEED (the same numbers in every process)."""
+    from repro_torch.models.transformer import init_params
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(TP_SEED)
+    params = init_params(cfg, gen)
+    prompt = torch.randint(0, cfg.vocab_size, (1, TP_PROMPT), generator=gen,
+                           device="cuda")
+    steps = torch.randint(0, cfg.vocab_size, (TP_DECODE, 1), generator=gen,
+                          device="cuda")
+    return params, prompt, steps
+
+
+def tp_bytes(cfg, rows: int, n: int) -> dict:
+    """Collective bytes (f32) and counts one rank issues in a
+    tensor-parallel forward of `rows` token positions on a "model" axis
+    of n, written out here from the head rule: one all-reduce of the
+    embedding, one of each block's output and of each MLP's; where n does
+    not divide the query heads, one all-gather of q (H * dh columns) and
+    of k and v (KV * dh each); where it divides the query heads but not
+    the K/V heads, of k and v; an R block gathers its u (W columns)."""
+    act = rows * cfg.d_model * 4
+    out = {"all-reduce": act, "all-gather": 0, "reduces": 1, "gathers": 0}
+    h, kv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    for i in range(cfg.num_layers):
+        t = cfg.block_pattern[i % len(cfg.block_pattern)]
+        blocks = 2 if cfg.d_ff else 1
+        out["all-reduce"] += blocks * act
+        out["reduces"] += blocks
+        if t in "ALX":
+            if h % n:
+                out["all-gather"] += rows * h * dh * 4
+                out["gathers"] += 1
+            if h % n or kv % n:
+                out["all-gather"] += 2 * rows * kv * dh * 4
+                out["gathers"] += 2
+        elif t == "R":
+            out["all-gather"] += rows * (cfg.lru_width or cfg.d_model) * 4
+            out["gathers"] += 1
+    return out
+
+
+def kernel_objects():
+    """Every CUDA kernel of the port by name (each process has its own
+    launch counts)."""
+    from repro_torch.kernels import (exchange, flash_attention, hamming,
+                                     lsh_projection, selection)
+    return {"lsh_projection": lsh_projection.KERNEL,
+            "selection": selection.KERNEL, "exchange": exchange.KERNEL,
+            "selection_tiled": selection.TILED_KERNEL,
+            "exchange_streamed": exchange.STREAMED_KERNEL,
+            "selection_ann": selection.ANN_KERNEL,
+            "selection_ann_grouped": selection.GROUPED_KERNEL,
+            "lsh_single": lsh_projection.SINGLE_KERNEL,
+            "hamming": hamming.KERNEL,
+            "flash_attention": flash_attention.KERNEL}
+
+
+def counted(records) -> dict:
+    out = {}
+    for r in records:
+        out[r["kind"]] = out.get(r["kind"], 0) + r["bytes"]
+        out[r["kind"] + " count"] = out.get(r["kind"] + " count", 0) + 1
+    return out
+
+
+def tp_core_check(torch, cfg, placed, rank: int):
+    """One rank's attention core at its own shapes (the head rule of the
+    first attention layer: its query heads, and its K/V heads taken by
+    `HeadPlan.take_kv`), on unit-normal q, k, v of TP_PROMPT tokens: the
+    route the prefill takes (flash) against the naive route, within
+    check_flash's f32 tolerance, 2e-5. None without an "A" layer."""
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models import attention
+    from repro_torch.sharding import tp
+    if "A" not in cfg.block_pattern:
+        return None
+    # the stacked params of the pattern's first "A" block
+    p = placed["layers"][cfg.block_pattern.index("A")]["attn"]
+    plan = tp.head_plan(cfg, p["wq"], p["wk"])
+    dh = cfg.resolved_head_dim
+    kv = plan.kv_heads if plan.kv_split else cfg.num_kv_heads
+    dev = p["wq"].to_local().device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(TP_SEED + rank)
+    q = torch.randn((1, TP_PROMPT, plan.heads, dh), generator=gen,
+                    device=dev)
+    k, v = (torch.randn((1, TP_PROMPT, kv, dh), generator=gen, device=dev)
+            for _ in range(2))
+    lcfg = plan.cfg(cfg)
+
+    def core():
+        return attention._attend(lcfg, q, plan.take_kv(k), plan.take_kv(v),
+                                 "causal", 0, False)
+    n0 = flash_attention.KERNEL.launches
+    got = core()
+    launches = flash_attention.KERNEL.launches - n0
+    attention.set_attn_impl("naive")
+    try:
+        want = core()
+    finally:
+        attention.set_attn_impl("auto")
+    return {"q_heads": plan.heads, "kv_heads": plan.kv_heads,
+            "kv_index": plan.kv_index, "flash_launches": launches,
+            "max_abs_err": (got - want).abs().max().item()}
+
+
+def sharding_tp_rank(rank: int, world: int, plan: dict) -> dict:
+    """One rank of the tensor-parallel phase (gloo, on cuda:0, a (1, 4)
+    mesh): for each case, each rank draws the whole params from the same
+    seed and keeps its shards only (`place_params`, each shard copied
+    out, the rest freed: 4 x 8 GB at most at once); then the prefill with every count set to 0 just before
+    and read just after, its collectives recorded, and for Minitron-4B
+    the decode steps; the prefill again, timed; one all-reduce of the
+    row-parallel payload, timed. Returns the rank's vocabulary shard of
+    each logits tensor."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.device import resolve_device
+    from repro_torch.launch.dryrun import CollectiveCounter, _mesh_axes
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models.transformer import decode_step, prefill
+    from repro_torch.sharding import place_params
+    from repro_torch.tree import tree_map
+    resolve_device("cuda")
+    torch.cuda.set_device(0)
+    mesh = make_device_mesh((1, world), ("data", "model"), "cuda")
+    kernels = kernel_objects()
+    out = {}
+    for arch, layers in TP_CASES:
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+        full, prompt, steps = tp_draw(torch, cfg)
+        placed = tree_map(lambda d: DTensor.from_local(
+            d.to_local().clone(), d.device_mesh, d.placements,
+            run_check=False, shape=d.shape, stride=d.stride()),
+            place_params(cfg, full, mesh))
+        del full
+        torch.cuda.empty_cache()
+        dist.barrier()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels.values():
+            k.launches = 0
+        with torch.no_grad(), CollectiveCounter(_mesh_axes(mesh)) as pre:
+            logits, cache = prefill(cfg, placed, prompt,
+                                    cache_len=TP_PROMPT + TP_DECODE)
+        torch.cuda.synchronize()
+        launches = {n: k.launches for n, k in kernels.items()}
+        res = {"logits": logits.to_local().cpu(), "launches": launches,
+               "prefill": counted(pre.records)}
+        if arch == "minitron-4b":
+            dec = []
+            with torch.no_grad(), CollectiveCounter(_mesh_axes(mesh)) as rec:
+                for i in range(TP_DECODE):
+                    lg, cache = decode_step(cfg, placed, cache, steps[i],
+                                            TP_PROMPT + i)
+                    dec.append(lg.to_local().cpu())
+            res["decode"], res["decode_bytes"] = dec, counted(rec.records)
+        res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del cache
+        torch.cuda.empty_cache()
+        res["core"] = tp_core_check(torch, cfg, placed, rank)
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            prefill(cfg, placed, prompt, cache_len=TP_PROMPT + TP_DECODE)
+        torch.cuda.synchronize()
+        res["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        payload = torch.ones((1, TP_PROMPT, cfg.d_model), device="cuda")
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(payload, group=mesh.get_group("model"))
+        torch.cuda.synchronize()
+        res["allreduce_ms"] = (time.perf_counter() - t0) * 1e3
+        out[arch] = res
+        del placed, logits, payload
+        torch.cuda.empty_cache()
+    return out
+
+
+def sharding_tp_path(torch, kernels):
+    """Path 6c, the tensor-parallel forward: each case's unsharded
+    prefill (and Minitron-4B's decode) on this process first, then 4
+    spawned gloo ranks on cuda:0 (`sharding_tp_rank`), the ranks'
+    vocabulary shards put side by side and held against it, their
+    collective bytes against `tp_bytes`, their launches: flash once per
+    layer of a prefill whose heads "model" divides or gathers, nothing
+    else. Returns the flash launches of Minitron-4B's tensor-parallel
+    prefill, summed over the ranks."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.models.transformer import decode_step, prefill
+
+    refs = {}
+    for arch, layers in TP_CASES:
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+        params, prompt, steps = tp_draw(torch, cfg)
+        with torch.no_grad():
+            for _ in range(2):            # the second call timed (warm)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, cache = prefill(cfg, params, prompt,
+                                        cache_len=TP_PROMPT + TP_DECODE)
+                torch.cuda.synchronize()
+            ref = {"logits": logits.cpu(),
+                   "ms": (time.perf_counter() - t0) * 1e3}
+            if arch == "minitron-4b":
+                ref["decode"] = [decode_step(cfg, params, cache, steps[i],
+                                             TP_PROMPT + i)[0].cpu()
+                                 for i in range(TP_DECODE)]
+        refs[arch] = ref
+        del params, cache, logits
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(sharding_tp_rank, SHARD_WORLD, {})
+    ranks_s = time.perf_counter() - t0
+    flash = {}
+    for arch, layers in TP_CASES:
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+        ref = refs[arch]
+        got = torch.cat([r[arch]["logits"] for r in ranks], dim=-1)
+        scale = ref["logits"].abs().max().item()
+        err = (got - ref["logits"]).abs().max().item()
+        dec_err = 0.0
+        if arch == "minitron-4b":
+            for i in range(TP_DECODE):
+                g = torch.cat([r[arch]["decode"][i] for r in ranks], dim=-1)
+                dec_err = max(dec_err, (g - ref["decode"][i]).abs().max()
+                              .item() / ref["decode"][i].abs().max().item())
+        want = tp_bytes(cfg, TP_PROMPT, SHARD_WORLD)
+        want_dec = tp_bytes(cfg, 1, SHARD_WORLD)
+        per_layer_flash = sum(cfg.block_pattern[i % len(cfg.block_pattern)]
+                              == "A" for i in range(layers))
+        bad = []
+        for r, res in enumerate(ranks):
+            mine = res[arch]
+            got_b = mine["prefill"]
+            if (got_b.get("all-reduce", 0), got_b.get("all-gather", 0),
+                    got_b.get("all-reduce count", 0),
+                    got_b.get("all-gather count", 0)) != (
+                    want["all-reduce"], want["all-gather"], want["reduces"],
+                    want["gathers"]) or set(got_b) - {
+                    "all-reduce", "all-gather", "all-reduce count",
+                    "all-gather count"}:
+                bad.append((r, "prefill bytes", got_b, want))
+            if arch == "minitron-4b":
+                db = mine["decode_bytes"]
+                if (db.get("all-reduce", 0), db.get("all-gather", 0)) != (
+                        TP_DECODE * want_dec["all-reduce"],
+                        TP_DECODE * want_dec["all-gather"]):
+                    bad.append((r, "decode bytes", db, want_dec))
+            if mine["launches"]["flash_attention"] != per_layer_flash or any(
+                    v for n, v in mine["launches"].items()
+                    if n != "flash_attention"):
+                bad.append((r, "launches", mine["launches"]))
+            core = mine["core"]
+            if per_layer_flash and (core is None
+                                    or core["flash_launches"] != 1
+                                    or not core["max_abs_err"] < 2e-5):
+                bad.append((r, "attention core against naive", core))
+        if err > TP_REL_TOL * scale or dec_err > TP_REL_TOL or bad:
+            raise AssertionError(
+                f"{arch} tensor-parallel prefill on 4 ranks: max abs error "
+                f"{err} (max |logit| {scale}), decode relative {dec_err}, "
+                f"against the unsharded forward (limit {TP_REL_TOL}); "
+                f"mismatches {bad}")
+        flash[arch] = sum(r[arch]["launches"]["flash_attention"]
+                          for r in ranks)
+        emit({"phase": "sharding_tp", "arch": arch, "num_layers": layers,
+              "mesh": "1x4 gloo (one card)", "prompt": TP_PROMPT,
+              "heads": [cfg.num_heads, cfg.num_kv_heads],
+              "head_rule": ("heads split" if cfg.num_heads % SHARD_WORLD == 0
+                            and cfg.num_kv_heads % SHARD_WORLD == 0 else
+                            "q split, K/V gathered" if cfg.num_heads
+                            % SHARD_WORLD == 0 else "every head on every "
+                            "rank"),
+              "logits_max_abs_err": err, "max_abs_logit": scale,
+              "tolerance_rel": TP_REL_TOL,
+              "decode_rel_err": dec_err if arch == "minitron-4b" else None,
+              "prefill_bytes_per_rank": ranks[0][arch]["prefill"],
+              "prefill_bytes_formula": want,
+              "decode_bytes_per_rank": ranks[0][arch].get("decode_bytes"),
+              "flash_launches_per_rank": [r[arch]["launches"][
+                  "flash_attention"] for r in ranks],
+              "rank_core_vs_naive": [r[arch]["core"] for r in ranks],
+              "unsharded_prefill_ms": ref["ms"],
+              "rank_prefill_ms": [r[arch]["prefill_ms"] for r in ranks],
+              "allreduce_ms_gloo_through_the_host": [
+                  r[arch]["allreduce_ms"] for r in ranks],
+              "rank_peak_gb": [r[arch]["peak_gb"] for r in ranks],
+              "ranks_wall_s": ranks_s})
+    emit({"phase": "main_path_launches", "run": "tensor-parallel prefill",
+          "arch": "minitron-4b", "flash_attention": flash["minitron-4b"],
+          "per_rank": flash["minitron-4b"] // SHARD_WORLD})
+    return flash
 
 
 SERVICE = dict(reselect_every=4, churn="1:leave:3,1:leave:8,2:join:3",
@@ -3029,20 +3395,11 @@ def main() -> int:
     print(smi, flush=True)
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.device import resolve_device
-    from repro_torch.kernels import (build, exchange, flash_attention,
-                                     hamming, lsh_projection, selection)
+    from repro_torch.kernels import build
     from repro_torch.launch.fed import run_federation
 
     resolve_device("cuda")               # strict f32: TF32 off
-    kernels = {"lsh_projection": lsh_projection.KERNEL,
-               "selection": selection.KERNEL, "exchange": exchange.KERNEL,
-               "selection_tiled": selection.TILED_KERNEL,
-               "exchange_streamed": exchange.STREAMED_KERNEL,
-               "selection_ann": selection.ANN_KERNEL,
-               "selection_ann_grouped": selection.GROUPED_KERNEL,
-               "lsh_single": lsh_projection.SINGLE_KERNEL,
-               "hamming": hamming.KERNEL,
-               "flash_attention": flash_attention.KERNEL}
+    kernels = kernel_objects()
     laps, clock = {}, [time.perf_counter()]
 
     def lap(name):
@@ -3289,6 +3646,13 @@ def main() -> int:
     emit({"phase": "main_path_launches", "run": "sharding",
           **sharding_path(torch, kernels)})
     lap("sharding")
+
+    # 7a. the tensor-parallel forward: Minitron-4B, phi3-medium-14b and
+    # recurrentgemma-2b at full width (depth cut) on a (1, 4) mesh of 4
+    # gloo ranks on this card, against the unsharded forward
+    torch.cuda.empty_cache()
+    sharding_tp_path(torch, kernels)
+    lap("sharding_tp")
 
     # 7b. the federation with transformer clients: the dry run's period
     # at 256 and 1,024 clients, attention trained, flash launches, card

@@ -9,7 +9,7 @@ For each (arch, shape) it reports:
   - bytes per device of the params, the AdamW state (train), the decode
     cache (decode) and the inputs, exactly, from the spec trees
     (`param_specs`, `sharding.opt_state_specs` / `cache_specs` /
-    `train_batch_specs`) after `_sanitize` (a dimension its axes do not
+    `train_batch_specs`) after `sanitize` (a dimension its axes do not
     divide is replicated, as in the JAX dryrun), in bf16 (`DTYPE`; AdamW
     keeps m and v in f32 and its step in int32);
   - `input_specs` and `model_flops` (6ND train, 2ND prefill, 2NB decode,
@@ -33,11 +33,32 @@ For each (arch, shape) it reports:
   - roofline terms on one NVIDIA H100 SXM (NVIDIA's data sheet, as
     `chip_smoke.py` uses them): compute_s = FLOPs per device at the bf16
     tensor-core peak, memory_s = the bytes per device above read once
-    over HBM (a lower bound: activations are not counted).
-
-Collective bytes are not reported. The JAX dryrun parses them from XLA's
-compiled HLO (`collective_stats`); an eager PyTorch step has no compiled
-program to read them from, and the port does not estimate them.
+    over HBM (a lower bound: activations are not counted);
+  - `collectives`: the collectives of one tensor-parallel step
+    (`sharding.tp`: params placed by `param_specs` after `sanitize`,
+    each placement of the forward stated), run on meta over a fake
+    process group of the mesh's size (`fake_mesh`: backend "fake", this
+    process as rank 0; a process group already running is set aside and
+    restored). A `TorchDispatchMode` (`CollectiveCounter`) records each
+    `_c10d_functional` collective DTensor issues and each c10d op issued
+    directly, `wait_tensor` and `_wrap_tensor_autograd` left out:
+    {"bytes_by_kind", "total_bytes", "num_collectives"} under JAX's kind
+    names (`collective_stats`), bytes per device of each collective's
+    result, as the JAX `collective_stats` counts HLO result shapes, and
+    "bytes_by_axis" (the mesh axis of each collective's group). They are
+    rebuilt from the counts at 1 and 2 pattern repetitions by the JAX
+    dryrun's rule, base + (reps - 1) * max(count(2) - count(1), 0) per
+    kind and per axis; `num_collectives` is rebuilt the same way (the
+    collectives a whole-depth step issues), where the JAX dryrun reports
+    the count of its one-repetition HLO. The time loops issue none, so
+    they are counted cut to one trip. DTensor's collectives are not XLA's:
+    GSPMD chooses its own (it may all-gather weights, fuse or combine
+    collectives, or reduce-scatter where the port all-reduces), while the
+    port issues exactly the redistributions its forward states and
+    DTensor's autograd derives the backward's; a decode step's cache is
+    made before the count, where JAX takes it as an input. No
+    collective_s term is reported: the (16, 16) mesh spans more cards
+    than one NVLink domain, and the port has no measured rate for it.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch minitron-4b \\
@@ -47,28 +68,30 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
 import sys
 import time
 import traceback
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import torch
 
 from repro_torch.configs import SHAPES, get_config, list_archs, supports_shape
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.launch.mesh import axis_sizes, make_production_mesh
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import xlstm
 from repro_torch.models.transformer import (init_cache, meta_params,
                                             param_specs)
 from repro_torch.optim import adamw
 from repro_torch.sharding import (batch_axes, cache_specs, local_shape,
-                                  opt_state_specs, train_batch_specs)
+                                  opt_state_specs, place_params, sanitize,
+                                  train_batch_specs)
 from repro_torch.train.steps import (make_prefill_step, make_serve_step,
                                      make_train_step)
-from repro_torch.tree import P, tree_leaves, tree_map
+from repro_torch.tree import P, tree_leaves
 
 # one NVIDIA H100 SXM (data sheet): dense bf16 tensor-core FLOP/s and HBM
 # bytes/s, the constants of chip_smoke.py
@@ -81,28 +104,6 @@ DTYPE = torch.bfloat16
 def _meta(shape, dtype) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device="meta")
 
-
-def _sanitize(spec_tree, shape_tree, mesh):
-    """Drop sharding on dims not divisible by their mesh axes (e.g.
-    whisper's vocab 51,865 on a 16-way model axis, or batch 1 of
-    long_500k on the 16-way data axis): those dims are replicated.
-    `shape_tree`: tensors (or anything with `.shape`) in the specs' tree."""
-    sizes = axis_sizes(mesh)
-
-    def fix(spec, leaf):
-        shape = tuple(leaf.shape)
-        parts = list(spec) + [None] * (len(shape) - len(spec))
-        out = []
-        for dim, ax in zip(shape, parts):
-            if ax is None:
-                out.append(None)
-                continue
-            axes = ax if isinstance(ax, tuple) else (ax,)
-            div = math.prod(sizes[a] for a in axes)
-            out.append(ax if dim % div == 0 else None)
-        return P(*out)
-
-    return tree_map(fix, spec_tree, shape_tree)
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeConfig,
@@ -135,8 +136,8 @@ def model_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
 
 def device_bytes(tree, spec_tree, mesh) -> int:
     """Bytes one device holds of `tree` (tensors, e.g. on meta) laid out
-    by `spec_tree` after `_sanitize`."""
-    specs = tree_leaves(_sanitize(spec_tree, tree, mesh))
+    by `spec_tree` after `sanitize`."""
+    specs = tree_leaves(sanitize(spec_tree, tree, mesh))
     return sum(math.prod(local_shape(t.shape, s, mesh)) * t.element_size()
                for t, s in zip(tree_leaves(tree), specs))
 
@@ -232,6 +233,205 @@ def counted_flops(cfg: ModelConfig, shape: ShapeConfig, *,
             "counted_reps": [1, 2], **loops}
 
 
+# ---------------------------------------------------------------------------
+# collectives: the tensor-parallel step counted on a fake process group
+# ---------------------------------------------------------------------------
+# JAX's HLO kind of each collective op, functional (what DTensor issues)
+# or c10d (issued directly, as `tp.redistribute`'s transport for gloo
+# groups of CUDA tensors);
+# `wait_tensor` and `_wrap_tensor_autograd` move no data
+KINDS = {
+    "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "all_reduce_coalesced_": "all-reduce", "allreduce_": "all-reduce",
+    "allreduce_coalesced_": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_out": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "allgather_": "all-gather", "_allgather_base_": "all-gather",
+    "allgather_into_tensor_coalesced_": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "reduce_scatter_": "reduce-scatter",
+    "_reduce_scatter_base_": "reduce-scatter",
+    "all_to_all_single": "all-to-all", "alltoall_": "all-to-all",
+    "alltoall_base_": "all-to-all",
+    "send": "collective-permute", "recv_": "collective-permute",
+    "broadcast": "broadcast", "broadcast_": "broadcast",
+}
+_COLLECTIVE_NS = ("_c10d_functional", "_c10d_functional_autograd", "c10d")
+
+
+def _group_name(args) -> str:
+    """The group of a functional collective (its name, a str argument)
+    or of a c10d op (its ProcessGroup, a ScriptObject argument)."""
+    for a in args:
+        if isinstance(a, str) and a not in ("sum", "avg", "max", "min",
+                                            "product"):
+            return a
+        if isinstance(a, torch.ScriptObject):
+            try:
+                return torch.distributed.ProcessGroup.unbox(a).group_name
+            except (AttributeError, RuntimeError, TypeError):
+                continue
+    return ""
+
+
+class CollectiveCounter:
+    """A `TorchDispatchMode` (made on `__enter__`) that records every
+    collective issued under it: one record {"kind", "bytes", "axis"} per
+    op, `bytes` those of its result on this device (the HLO result shapes
+    JAX's `collective_stats` counts), `axis` the mesh axis of its group
+    (`axes`: group name -> axis name)."""
+
+    def __init__(self, axes: Dict[str, str]):
+        self.axes = axes
+        self.records: List[Dict[str, Any]] = []
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        from torch.utils import _pytree as pytree
+        counter = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                kind = KINDS.get(func.__name__.split(".")[0])
+                if func.namespace in _COLLECTIVE_NS and kind:
+                    leaves = [t for t in pytree.tree_leaves(out)
+                              if isinstance(t, torch.Tensor)]
+                    counter.records.append({
+                        "kind": kind,
+                        "bytes": sum(t.numel() * t.element_size()
+                                     for t in leaves),
+                        "axis": counter.axes.get(_group_name(args), "?")})
+                return out
+        self._mode = Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._mode.__exit__(*exc)
+
+
+def collective_stats(records) -> Dict[str, Any]:
+    """Per-device collective bytes by kind, the JAX `collective_stats`
+    dict, from `CollectiveCounter` records (each {"kind", "bytes"})."""
+    per_kind: Dict[str, float] = {}
+    for r in records:
+        per_kind[r["kind"]] = per_kind.get(r["kind"], 0) + r["bytes"]
+    return {"bytes_by_kind": per_kind,
+            "total_bytes": sum(per_kind.values()),
+            "num_collectives": len(records)}
+
+
+@contextlib.contextmanager
+def fake_mesh(layout):
+    """A `DeviceMesh` of `layout`'s shape and names over a fake process
+    group (backend "fake": no ranks, no storage; this process plays rank
+    0 and every collective returns at once). A process group already
+    running is set aside while it lives and restored after, with every
+    group made here destroyed."""
+    import torch.distributed as dist
+    import torch.distributed.distributed_c10d as c10d
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    saved = c10d._world.default_pg
+    before = set(c10d._world.pg_map)
+    c10d._world.default_pg = None
+    try:
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=layout.size())
+        yield init_device_mesh("cpu", tuple(layout.shape),
+                               mesh_dim_names=tuple(layout.mesh_dim_names))
+    finally:
+        _clear_sharding_cache()
+        c10d._world.default_pg = saved
+        for pg in [g for g in list(c10d._world.pg_map) if g not in before]:
+            dist.destroy_process_group(pg)
+
+
+def _clear_sharding_cache() -> None:
+    """Empty DTensor's sharding caches: the Python ones and, where this
+    torch has it, the native dispatch path's."""
+    from torch.distributed.tensor import DTensor
+    native = getattr(torch._C, "_clear_DTensor_sharding_propagator_cache",
+                     None)
+    if native is not None:
+        native()
+    prop = DTensor._op_dispatcher.sharding_propagator
+    for name in ("propagate_op_sharding", "_propagate_tensor_meta_cached"):
+        clear = getattr(getattr(prop, name, None), "cache_clear", None)
+        if clear is not None:
+            clear()
+
+
+def _mesh_axes(mesh) -> Dict[str, str]:
+    return {mesh.get_group(n).group_name: n for n in mesh.mesh_dim_names}
+
+
+def step_collectives(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
+                     remat: str = "block") -> List[Dict[str, Any]]:
+    """The collectives of one tensor-parallel step on `mesh` (a
+    `fake_mesh`), on meta: params laid out by `place_params`, the step as
+    `step_flops` builds it (a decode step's cache made beforehand, not
+    counted). The time loops issue none (xLSTM's blocks are replicated),
+    so they run cut to one trip."""
+    params = place_params(cfg, meta_params(cfg, DTYPE), mesh)
+    batch = input_specs(cfg, shape)
+    win = _window_override(cfg, shape)
+    if shape.mode == "train":
+        opt = adamw(1e-4, weight_decay=0.1)
+        args = (params, opt.init(params), batch)
+        step = make_train_step(cfg, opt, remat=remat)
+    elif shape.mode == "prefill":
+        step = make_prefill_step(cfg)
+        args = (params, {k: v for k, v in batch.items() if k != "labels"})
+    else:
+        step = make_serve_step(cfg, window_override=win)
+        args = (params, _decode_cache(cfg, params, shape, batch),
+                batch["tokens"], shape.seq_len - 1)
+    with xlstm.cut_loops(slstm=1, mlstm=1), \
+            CollectiveCounter(_mesh_axes(mesh)) as counter:
+        step(*args)
+    return counter.records
+
+
+def _by_axis(records) -> Dict[str, float]:
+    out: Dict[str, float] = {}
+    for r in records:
+        out[r["axis"]] = out.get(r["axis"], 0) + r["bytes"]
+    return out
+
+
+def counted_collectives(cfg: ModelConfig, shape: ShapeConfig, layout, *,
+                        remat: str = "block") -> Dict[str, Any]:
+    """`collective_stats` of the whole-depth step, rebuilt from counts at
+    1 and 2 pattern repetitions by the JAX dryrun's rule, base + (reps -
+    1) * max(body, 0) for each kind, the bytes by mesh axis and the
+    number of collectives alike (one count below two repetitions)."""
+    reps = cfg.pattern_reps
+    with fake_mesh(layout) as mesh:
+        if reps < 2:
+            recs = step_collectives(cfg, shape, mesh, remat=remat)
+            return {**collective_stats(recs), "bytes_by_axis":
+                    _by_axis(recs), "counted_reps": [reps]}
+        one = step_collectives(_with_reps(cfg, 1), shape, mesh, remat=remat)
+        two = step_collectives(_with_reps(cfg, 2), shape, mesh, remat=remat)
+
+    def corr(a, b):
+        return a + max(reps - 1, 0) * max(b - a, 0)
+
+    def rebuilt(f):
+        c1, c2 = f(one), f(two)
+        return {k: corr(c1.get(k, 0), c2.get(k, 0))
+                for k in sorted(set(c1) | set(c2))}
+    by_kind = rebuilt(lambda r: collective_stats(r)["bytes_by_kind"])
+    return {"bytes_by_kind": by_kind, "total_bytes": sum(by_kind.values()),
+            "num_collectives": corr(len(one), len(two)),
+            "bytes_by_axis": rebuilt(_by_axis), "counted_reps": [1, 2]}
+
+
 def memory_per_device(cfg: ModelConfig, shape: ShapeConfig,
                       mesh) -> Dict[str, int]:
     """Bytes per device of params, optimizer state (train), decode cache
@@ -267,6 +467,7 @@ def dryrun_one(arch: str, shape_name: str, *, multi_pod: bool = False,
     t0 = time.time()
     mem = memory_per_device(cfg, shape, mesh)
     counts = counted_flops(cfg, shape, remat=remat)
+    coll = counted_collectives(cfg, shape, mesh, remat=remat)
     flops = counts["flops"] / chips
     mf = model_flops(cfg, shape)
     terms = {"compute_s": flops / BF16_FLOP_PER_S,
@@ -279,7 +480,7 @@ def dryrun_one(arch: str, shape_name: str, *, multi_pod: bool = False,
         "wall_s": round(time.time() - t0, 1),
         "bytes_per_device": mem,
         "flops_per_device": flops, **counts,
-        "collectives": None,
+        "collectives": coll,
         "roofline": {**terms, "dominant": max(terms, key=terms.get),
                      "hardware": "NVIDIA H100 SXM (data sheet peaks)",
                      "model_flops": mf,

@@ -4,6 +4,14 @@ MLPs, embeddings, RoPE and the fan-in init (the port of
 
 Parameters keep the JAX package's names and (in, out) layouts, so a
 projection is `x @ w` and weights carry across without a transpose.
+
+Each function also takes the tensor-parallel path (`sharding.tp`): on
+DTensor activations, norms run on the replicated stream, the MLP is
+column-parallel `wi` / `wg` then row-parallel `wo` (one all-reduce), the
+embedding a masked lookup in each rank's vocabulary rows (one
+all-reduce), and the LM head leaves the logits split on the vocabulary,
+as the JAX package's out-shardings do. RoPE runs inside the attention's
+local computation.
 """
 from __future__ import annotations
 
@@ -11,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sharding import tp
 from repro_torch.tree import P
 
 
@@ -85,6 +94,9 @@ NORM_INIT = {"scale": ones, "bias": zeros()}
 
 def apply_norm(cfg: ModelConfig, p, x: torch.Tensor,
                eps: float = 1e-6) -> torch.Tensor:
+    if tp.placed(x):
+        return tp.local(lambda p, x: apply_norm(cfg, p, x, eps),
+                        x.placements, p, x)
     xf = x.to(torch.float32)
     if cfg.norm == "layernorm":
         mu = xf.mean(-1, keepdim=True)
@@ -143,15 +155,22 @@ def mlp_specs(cfg: ModelConfig):
 MLP_INIT = {"bi": zeros(), "bo": zeros()}
 
 
-def apply_mlp(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+def _mlp_hidden(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     h = x @ p["wi"]
     if cfg.mlp_bias:
         h = h + p["bi"]
     if cfg.activation in GATED:
-        h = _act(GATED[cfg.activation], x @ p["wg"]) * h
-    else:
-        h = _act(cfg.activation, h)
-    out = h @ p["wo"]
+        return _act(GATED[cfg.activation], x @ p["wg"]) * h
+    return _act(cfg.activation, h)
+
+
+def apply_mlp(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+    if tp.placed(x):
+        up = {k: p[k] for k in ("wi", "wg", "bi") if k in p}
+        h = tp.local(lambda up, x: _mlp_hidden(cfg, up, x),
+                     tp.col_out(x, p["wi"]), up, x)
+        return tp.row(h, p["wo"], p.get("bo"))
+    out = _mlp_hidden(cfg, p, x) @ p["wo"]
     if cfg.mlp_bias:
         out = out + p["bo"]
     return out
@@ -182,10 +201,17 @@ EMBED_INIT = {"tok": normal(1.0), "pos": normal(0.02)}
 
 
 def embed_tokens(cfg: ModelConfig, p, tokens: torch.Tensor) -> torch.Tensor:
+    if tp.placed(tokens):
+        return tp.embed(p["tok"], tokens)
     return p["tok"][tokens]
 
 
 def lm_logits(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+    if tp.placed(x):
+        w = p["tok"] if cfg.tie_embeddings else p["lm_head"]
+        return tp.local(lambda x, w: lm_logits(cfg, {
+            "tok" if cfg.tie_embeddings else "lm_head": w}, x),
+            tp.col_out(x, w), x, w)
     w = p["tok"].T if cfg.tie_embeddings else p["lm_head"]
     return (x @ w).to(torch.float32)
 

@@ -23,16 +23,20 @@ Per call, over the T = B * S flattened tokens:
      scatter-add's order (an `index_add_` would add them by atomics in
      no fixed order on the card).
 
-Expert parallelism (`set_sharded_impl`, `apply_moe_sharded`; the JAX
-package's shard_map path): each rank of the mesh's "model" axis holds its
-slice of the weights by `moe_specs`. With E >= EXPERT_SHARD_MIN it holds
-E / n experts and dispatches only to them (global ids shifted by rank *
-E_here); with fewer experts it holds every expert's slice of the FFN
-width and dispatches every slot. The tokens are the same on every rank
-of the axis, and one `all_reduce` (sum) of the (T, D) output is the only
-collective on activations; the aux values are averaged over the ranks
-with one more all-reduce of two scalars, JAX's `pmean`. Forward only:
-the collective is not differentiated.
+Expert parallelism over the mesh's "model" axis (the JAX package's
+shard_map path, which its `set_sharded_impl` switches on) is taken here
+by the params: DTensor params placed by `moe_specs` and DTensor
+activations (`sharding.tp`) run `_tp_moe`. Each rank of "model" holds its
+slice of the weights. With E >= EXPERT_SHARD_MIN it holds E / n experts
+and dispatches only to them (global ids shifted by rank * E_here); with
+fewer experts it holds every expert's slice of the FFN width and
+dispatches every slot. The tokens are the same on every rank of the axis
+(`_rank_share` runs inside `tp.local`), and its two sums are stated
+placements: the (T, D) output is Partial on "model" and one all-reduce
+makes it Replicate, the only collective on activations; the aux values
+are Partial on every mesh axis and are all-reduced and averaged over the
+whole mesh, JAX's `pmean`. The reductions are differentiable, so the
+train step runs through them.
 
 The JAX `set_dispatch_spec` also takes the (G, E, C, D) buffer's
 partition spec for its SPMD partitioner; eager PyTorch has none, so the
@@ -40,11 +44,14 @@ port's takes only G.
 """
 from __future__ import annotations
 
+import math
+
 import torch
-import torch.distributed as dist
+from torch.distributed.tensor import Partial, Replicate
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import GATED, _act
+from repro_torch.sharding import tp
 from repro_torch.tree import P
 
 EXPERT_SHARD_MIN = 16
@@ -199,54 +206,58 @@ def apply_moe(cfg: ModelConfig, p, x: torch.Tensor):
 # ===========================================================================
 # expert parallelism over the mesh's "model" axis (the JAX shard_map path)
 # ===========================================================================
-_SHARDED = None
-
-
-def set_sharded_impl(group=None, *, aux_group=None):
-    """Enable (a process group given) or disable (None) the sharded path.
-
-    `group`: the ranks of the mesh's "model" axis, in axis order (e.g.
-    `mesh.get_group("model")`); `aux_group`: every rank of the mesh, over
-    which the aux values are averaged (default: `group`, the whole mesh
-    when its data axis has size 1)."""
-    global _SHARDED
-    _SHARDED = None if group is None else {
-        "group": group, "aux_group": group if aux_group is None
-        else aux_group}
-
-
 def moe_forward(cfg: ModelConfig, p, x: torch.Tensor):
     """Entry point of the transformer blocks."""
-    if _SHARDED is not None:
-        return apply_moe_sharded(cfg, p, x)
+    if tp.placed(x):
+        return _tp_moe(cfg, p, x)
     return apply_moe(cfg, p, x)
 
 
-def apply_moe_sharded(cfg: ModelConfig, p, x: torch.Tensor):
-    """One rank's share of the layer. p: this rank's slice of the weights
-    by `moe_specs` (plain tensors: call `.to_local()` on DTensors); x:
-    (B, S, D), the same on every rank of the "model" group. Returns the
-    whole layer's output on every rank, and the JAX path's aux values."""
-    group, aux_group = _SHARDED["group"], _SHARDED["aux_group"]
+def _rank_share(cfg: ModelConfig, p, x: torch.Tensor, rank: int):
+    """One rank's share of the layer, before any sum over ranks: its
+    experts' (or its FFN slice's) contribution to the (T, D) output, and
+    [load_balance, kept slots] (f32)."""
     b, s, d = x.shape
     t = b * s
-    e, k = cfg.num_experts, cfg.experts_per_token
-    e_sharded = e >= EXPERT_SHARD_MIN
-    n_model = dist.get_world_size(group)
+    k = cfg.experts_per_token
     xt = x.reshape(t, d)
     probs, topw, topi = route(cfg, p, xt)      # global expert ids
-
     e_here = p["wi"].shape[0]
-    local_ids = topi - dist.get_rank(group) * e_here if e_sharded else topi
+    local_ids = topi - rank * e_here \
+        if cfg.num_experts >= EXPERT_SHARD_MIN else topi
     out_buf, dest, keep = _dispatch_ffn(cfg, p, xt, local_ids,
                                         _capacity(cfg, t))
     out = _combine(out_buf, dest, keep, topw, t, k)
-    dist.all_reduce(out, group=group)          # the one collective
-
     stats = torch.stack([_load_balance(cfg, probs, topi),
                          keep.to(torch.float32).sum()])
-    dist.all_reduce(stats, group=aux_group)
-    stats = stats / dist.get_world_size(aux_group)
-    slots = float(t * k) / (n_model if e_sharded else 1)
-    aux = {"load_balance": stats[0], "dropped_frac": 1.0 - stats[1] / slots}
-    return out.reshape(b, s, d).to(x.dtype), aux
+    return out, stats
+
+
+def _tp_moe(cfg: ModelConfig, p, x):
+    """The layer on DTensor activations and params placed by `moe_specs`
+    (module docstring): the whole layer's output on every rank of
+    "model", and the JAX path's aux values."""
+    mesh = x.device_mesh
+    split = tp.split(p["wi"])
+    rank = tp.model_rank(mesh) if split else 0
+    t = math.prod(x.to_local().shape[:2])      # the rank's tokens
+
+    def share(p, x):
+        out, stats = _rank_share(cfg, p, x, rank)
+        return out.reshape(x.shape).to(x.dtype), stats
+    everywhere = tuple(Partial() for _ in x.placements)
+    out, stats = tp.local(share, [tp.on_model(x.placements, Partial()
+                                              if split else Replicate()),
+                                  everywhere], p, x)
+    if split:
+        out = tp.redistribute(out, x.placements)
+    pl = list(everywhere)
+    for i in range(mesh.ndim):           # one all-reduce per mesh axis
+        pl[i] = Replicate()
+        stats = tp.redistribute(stats, pl)
+    stats = stats.to_local() / mesh.size()
+    e_split = split and cfg.num_experts >= EXPERT_SHARD_MIN
+    slots = float(t * cfg.experts_per_token) / (
+        tp.model_size(mesh) if e_split else 1)
+    return out, {"load_balance": stats[0],
+                 "dropped_frac": 1.0 - stats[1] / slots}

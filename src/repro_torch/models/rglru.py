@@ -15,14 +15,23 @@ over time (`_linear_scan`: Hillis-Steele doubling, ceil(log2 S) steps of
 whole-tensor work, where the JAX package runs `lax.associative_scan`);
 a loop over S steps would cost S steps of host time per layer. Decode is
 the one-step recurrence on the (h, conv window) state.
+
+On DTensor activations (`sharding.tp`) the block is split on its
+recurrence width W over "model" (`rglru_specs`): `w_in` and `w_gate` are
+column-parallel, the conv and the scan run on each rank's channels, the
+gates' (W, W) products read every channel of u (one all-gather of u)
+and give the rank's columns, and `w_out` is row-parallel (one
+all-reduce). The state keeps the rank's channels (`rglru_state_specs`).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import uniform, zeros
+from repro_torch.sharding import tp
 from repro_torch.tree import P
 
 _C = 8.0
@@ -66,9 +75,12 @@ def _conv1d_causal(u, w, b):
     return out + b
 
 
-def _gates(p, u):
-    r = torch.sigmoid(u @ p["w_ra"] + p["b_ra"])
-    i = torch.sigmoid(u @ p["w_rx"] + p["b_rx"])
+def _gates(p, u, u_all=None):
+    """(a, gated input) of channels u; the gate products read `u_all`
+    (every channel, where u holds a rank's share of them), else u."""
+    u_all = u if u_all is None else u_all
+    r = torch.sigmoid(u_all @ p["w_ra"] + p["b_ra"])
+    i = torch.sigmoid(u_all @ p["w_rx"] + p["b_rx"])
     log_a = -_C * F.softplus(p["lam"].to(torch.float32)) \
         * r.to(torch.float32)
     a = torch.exp(log_a)
@@ -90,8 +102,40 @@ def _linear_scan(a, b):
     return b
 
 
+_GATE_KEYS = ("w_ra", "b_ra", "w_rx", "b_rx", "lam")
+
+
+def _per_row(raw, p):
+    """Placements of a (B, W) tensor beside (B, S, W) `raw`: W split as
+    `w_in`'s columns are."""
+    return tp.on_model(raw.placements,
+                       Shard(1) if tp.split(p["w_in"]) else Replicate())
+
+
+def _tp_forward(cfg, p, x):
+    raw = tp.col(x, p["w_in"])                            # (B,S,W) split
+    gate = tp.col(x, p["w_gate"])
+    u = tp.local(_conv1d_causal, raw.placements, raw, p["conv_w"],
+                 p["conv_b"])
+    u_all = tp.gather(u)         # the gates' (W, W) products mix channels
+    gp = {k: p[k] for k in _GATE_KEYS}
+    cw = cfg.conv1d_width
+
+    def body(raw, u, u_all, gate, gp):
+        a, gin = _gates(gp, u, u_all)
+        h = _linear_scan(a, gin).to(x.dtype)
+        return (h * _gelu(gate), h[:, -1].to(torch.float32),
+                raw[:, max(raw.shape[1] - (cw - 1), 0):, :])
+    pl3 = raw.placements
+    y, h_last, conv = tp.local(body, [pl3, _per_row(raw, p), pl3], raw, u,
+                               u_all, gate, gp)
+    return tp.row(y, p["w_out"]), {"h": h_last, "conv": conv}
+
+
 def rglru_forward(cfg: ModelConfig, p, x):
     """Prefill path. x: (B,S,D) -> (out (B,S,D), state)."""
+    if tp.placed(x):
+        return _tp_forward(cfg, p, x)
     raw = x @ p["w_in"]
     u = _conv1d_causal(raw, p["conv_w"], p["conv_b"])
     a, gin = _gates(p, u)                                 # (B,S,W) f32
@@ -116,9 +160,38 @@ def rglru_state_specs(cfg: ModelConfig, batch_axes):
     return {"h": P(batch_axes, "model"), "conv": P(batch_axes, None, "model")}
 
 
+def _tp_decode(cfg, p, x, state):
+    """The decode step on DTensor x; `state` holds the rank's channels
+    (plain views of the placed cache) and is written in place."""
+    raw = tp.col(x, p["w_in"])                            # (B,1,W)
+    gate = tp.col(x, p["w_gate"])
+
+    def conv(raw, conv_w, conv_b, state):
+        hist = torch.cat([state["conv"].to(raw.dtype), raw], dim=1)
+        u = torch.einsum("btw,tw->bw", hist, conv_w.flip(0)) + conv_b
+        return u, hist
+    u, hist = tp.local(conv, [_per_row(raw, p), raw.placements], raw,
+                       p["conv_w"], p["conv_b"], state)
+    u_all = tp.gather(u)
+    gp = {k: p[k] for k in _GATE_KEYS}
+
+    def body(u, u_all, hist, gate, gp, state):
+        a, gin = _gates(gp, u, u_all)
+        h = a * state["h"] + gin
+        state["h"].copy_(h)
+        state["conv"].copy_(hist[:, 1:, :])
+        return h.to(x.dtype) * _gelu(gate)[:, 0]
+    y = tp.local(body, _per_row(raw, p), u, u_all, hist, gate, gp, state)
+    out = tp.row(y, p["w_out"])
+    return tp.local(lambda o: o[:, None, :], out.placements, out), state
+
+
 def rglru_decode(cfg: ModelConfig, p, x, state):
     """One-step decode. x: (B,1,D). state: {"h": (B,W), "conv": (B,cw-1,W)}.
-    Returns (out (B,1,D), new state)."""
+    Returns (out (B,1,D), new state). On DTensor x the state is the
+    rank's local shards, updated in place and returned."""
+    if tp.placed(x):
+        return _tp_decode(cfg, p, x, state)
     raw = x @ p["w_in"]                                   # (B,1,W)
     hist = torch.cat([state["conv"].to(raw.dtype), raw], dim=1)
     # the prefill's conv gives u_{t-k} weight w[k]; hist runs oldest to

@@ -16,6 +16,16 @@ Families:
   audio              encoder (bidir "A") + decoder ("A" + cross) - the
                      conv frontend is stubbed: the encoder's input is
                      frame embeddings
+
+Tensor parallelism: with params laid out as DTensors
+(`sharding.place_params`), `forward`, `prefill`, `decode_step` and
+`init_cache` take the tensor-parallel path of `sharding.tp`. The inputs
+are placed here (split on the batch over the batch axes, replicated on
+"model"), the positions are made on each rank's rows, and each block's
+modules state their own placements and collectives. The decode cache is
+laid out by `cache_specs` after `sanitize`; the cache writes run on each
+rank's local shards (views of it). The logits come back split on the
+vocabulary.
 """
 from __future__ import annotations
 
@@ -32,6 +42,7 @@ from repro_torch.models.layers import (EMBED_INIT, MLP_INIT, NORM_INIT,
                                        embed_specs, embed_tokens, init_leaves,
                                        lm_logits, mlp_shapes, mlp_specs,
                                        norm_shapes, norm_specs)
+from repro_torch.sharding import tp
 from repro_torch.tree import P, tree_map
 
 Params = Dict[str, Any]
@@ -288,15 +299,65 @@ def _positions(b: int, s: int, device):
     return torch.arange(s, device=device).expand(b, s)
 
 
+def _placed_positions(rows, s: int):
+    """Positions (B, s) of DTensor `rows` (B, ...), made on each rank's
+    rows and placed as they are."""
+    return tp.local(lambda r: _positions(r.shape[0], s, r.device),
+                    rows.placements, rows)
+
+
+def _mesh(params):
+    """The mesh of placed params, or None."""
+    w = params["final_norm"]["scale"]
+    return w.device_mesh if tp.placed(w) else None
+
+
+def _place_inputs(params, tokens, extra):
+    """Inputs held whole by every rank, placed for placed params (split
+    on the batch, replicated on "model"); as given otherwise."""
+    mesh = _mesh(params)
+    if mesh is None:
+        return tokens, extra
+
+    def place(t):
+        return t if tp.placed(t) else tp.place_batch(t, mesh)
+    if extra:
+        extra = {k: place(v) for k, v in extra.items()}
+    return (None if tokens is None else place(tokens)), extra
+
+
+def _local(tree):
+    """Each DTensor of `tree` as its local shard (a view)."""
+    return tree_map(lambda a: a.to_local() if tp.placed(a) else a, tree)
+
+
+def _place_cache(cfg: ModelConfig, params: Params, cache: Params) -> Params:
+    """A cache built whole on every rank, laid out by `cache_specs` after
+    `sanitize` for placed params (each rank keeps its shard); as given
+    otherwise."""
+    mesh = _mesh(params)
+    if mesh is None:
+        return cache
+    from repro_torch.sharding import rules
+    return rules.place(cache, mesh, rules.sanitize(
+        rules.cache_specs(cfg, mesh), cache, mesh))
+
+
 def encode_audio(cfg: ModelConfig, params: Params, frames, *,
                  differentiable: bool = False):
     """Stubbed-frontend encoder: frames (B, T, D) -> (B, T, D), through
     bidirectional "A" blocks (the flash kernel on the card)."""
     enc = params["encoder"]
     b, t = frames.shape[:2]
-    x = frames + enc["pos"][None, :t, :]
+    if tp.placed(frames):
+        x = tp.local(lambda f, pos: f + pos[None, :t, :], frames.placements,
+                     frames, enc["pos"])
+        positions = _placed_positions(frames, t)
+    else:
+        x = frames + enc["pos"][None, :t, :]
+        positions = _positions(b, t, x.device)
     x, _ = _run_stack(cfg, {"layers": enc["layers"]}, x,
-                      positions=_positions(b, t, x.device), context=None,
+                      positions=positions, context=None,
                       pattern=("A",), differentiable=differentiable)
     return apply_norm(cfg, enc["final_norm"], x)
 
@@ -307,6 +368,8 @@ def _context_from_extra(cfg: ModelConfig, params: Params, extra, *,
         return encode_audio(cfg, params, extra["audio"],
                             differentiable=differentiable)
     if cfg.vision_tokens:
+        if tp.placed(extra["vision"]):   # K/V projections read every column
+            return tp.gather(tp.col(extra["vision"], params["vision_proj"]))
         return extra["vision"] @ params["vision_proj"]
     return None
 
@@ -314,10 +377,17 @@ def _context_from_extra(cfg: ModelConfig, params: Params, extra, *,
 def _embed(cfg: ModelConfig, params: Params, tokens):
     b, s = tokens.shape
     x = embed_tokens(cfg, params["embed"], tokens)
-    if cfg.learned_pos_embed:
-        idx = torch.clamp(torch.arange(s, device=tokens.device),
+
+    def add_pos(x, pos):
+        idx = torch.clamp(torch.arange(s, device=x.device),
                           max=cfg.learned_pos_embed - 1)
-        x = x + params["embed"]["pos"][idx][None]
+        return x + pos[idx][None]
+    if tp.placed(tokens):
+        if cfg.learned_pos_embed:
+            x = tp.local(add_pos, x.placements, x, params["embed"]["pos"])
+        return x, _placed_positions(tokens, s)
+    if cfg.learned_pos_embed:
+        x = add_pos(x, params["embed"]["pos"])
     return x, _positions(b, s, tokens.device)
 
 
@@ -335,7 +405,11 @@ def forward(cfg: ModelConfig, params: Params, tokens, extra=None, *,
     remat "block" recomputes each repetition of the block pattern in the
     backward pass (`torch.utils.checkpoint`, non-reentrant), as the JAX
     package's `jax.checkpoint` around its scan body does; the tail layers
-    and the encoder are kept, as there."""
+    and the encoder are kept, as there. Placed params take the
+    tensor-parallel path (module docstring); the logits are then split on
+    the vocabulary and the aux loss is a plain tensor, the same on every
+    rank."""
+    tokens, extra = _place_inputs(params, tokens, extra)
     x, positions = _embed(cfg, params, tokens)
     context = _context_from_extra(cfg, params, extra,
                                   differentiable=differentiable)
@@ -420,19 +494,24 @@ def _write(dst, src) -> None:
 def init_cache(cfg: ModelConfig, params: Params, batch: int, cache_len: int,
                dtype=torch.float32, extra=None, *, window_override: int = 0):
     """Build an empty decode cache (cross-attention K/V precomputed from
-    `extra`)."""
+    `extra`); laid out by `cache_specs` for placed params."""
+    if extra:
+        _, extra = _place_inputs(params, None, extra)
     context = _context_from_extra(cfg, params, extra)
-    cache = _empty_cache(
+    cache = _place_cache(cfg, params, _empty_cache(
         cfg, params, batch,
         lambda t: _cache_size(cfg, t, cache_len, window_override), dtype,
-        0 if context is None else context.shape[1])
+        0 if context is None else context.shape[1]))
     if context is not None:
+        local = _local(cache)
         for pi, i, t, bp in _blocks(cfg, params):
-            c = _block_cache(cache, pi, i)
+            c = _block_cache(local, pi, i)
             if t == "X":
-                _write(c["kv"], attn.cross_kv(cfg, bp["attn"], context))
+                _write(c["kv"], _local(attn.cross_kv(cfg, bp["attn"],
+                                                     context)))
             if "cross" in c:
-                _write(c["cross"], attn.cross_kv(cfg, bp["xattn"], context))
+                _write(c["cross"], _local(attn.cross_kv(cfg, bp["xattn"],
+                                                        context)))
     return cache
 
 
@@ -450,7 +529,8 @@ def _block_decode(cfg, t, p, x, c, pos, window_override):
         step = {"R": rglru.rglru_decode, "S": xlstm.slstm_decode,
                 "M": xlstm.mlstm_decode}[t]
         out, state = step(cfg, p["rec"], h, c["state"])
-        _write(c["state"], state)
+        if state is not c["state"]:       # the placed path writes in place
+            _write(c["state"], state)
     x = x + out
     if "cross" in c:
         hx = apply_norm(cfg, p["ln_x"], x)
@@ -468,12 +548,20 @@ def _block_decode(cfg, t, p, x, c, pos, window_override):
 def decode_step(cfg: ModelConfig, params: Params, cache: Params, token,
                 pos: int, *, window_override: int = 0):
     """token: (B,) int, pos: int -> (logits (B,V), cache). The cache is
-    updated in place and returned."""
-    x = embed_tokens(cfg, params["embed"], token[:, None])
+    updated in place and returned (for placed params, the placed cache
+    of `init_cache` / `prefill`, written through its local shards)."""
+    tokens, _ = _place_inputs(params, token[:, None], None)
+    x = embed_tokens(cfg, params["embed"], tokens)
     if cfg.learned_pos_embed:
-        x = x + params["embed"]["pos"][min(pos, cfg.learned_pos_embed - 1)]
+        row = min(pos, cfg.learned_pos_embed - 1)
+        if tp.placed(x):
+            x = tp.local(lambda x, p: x + p[row], x.placements, x,
+                         params["embed"]["pos"])
+        else:
+            x = x + params["embed"]["pos"][row]
+    local = _local(cache)
     for pi, i, t, bp in _blocks(cfg, params):
-        x = _block_decode(cfg, t, bp, x, _block_cache(cache, pi, i), pos,
+        x = _block_decode(cfg, t, bp, x, _block_cache(local, pi, i), pos,
                           window_override)
     x = apply_norm(cfg, params["final_norm"], x)
     return lm_logits(cfg, params["embed"], x)[:, 0], cache
@@ -489,6 +577,7 @@ def prefill(cfg: ModelConfig, params: Params, tokens, extra=None, *,
     ``cache_len`` (default: S) sizes the full-attention KV caches so the
     subsequent decode steps have room: pass S + max_new_tokens.
     """
+    tokens, extra = _place_inputs(params, tokens, extra)
     b, s = tokens.shape
     full_len = max(cache_len, s)
     x, positions = _embed(cfg, params, tokens)
@@ -497,10 +586,11 @@ def prefill(cfg: ModelConfig, params: Params, tokens, extra=None, *,
 
     def ring(t):                          # a ring cache always holds win
         return t == "L" or bool(window_override)
-    cache = _empty_cache(
+    cache = _place_cache(cfg, params, _empty_cache(
         cfg, params, b,
         lambda t: (window_override or cfg.window) if ring(t) else full_len,
-        x.dtype, 0 if context is None else context.shape[1])
+        x.dtype, 0 if context is None else context.shape[1]))
+    local = _local(cache)
 
     def ring_pack(k, win):
         """The last `win` positions in ring layout (slot = p % win)."""
@@ -514,8 +604,8 @@ def prefill(cfg: ModelConfig, params: Params, tokens, extra=None, *,
         x, _, entries = _apply_block(cfg, t, bp, x, positions=positions,
                                      context=context,
                                      window_override=window_override)
-        c = _block_cache(cache, pi, i)
-        for name, val in entries.items():
+        c = _block_cache(local, pi, i)
+        for name, val in _local(entries).items():
             if name == "state":
                 _write(c["state"], val)
             elif name in c:       # an enc-dec without context keeps no K/V

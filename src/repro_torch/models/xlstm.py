@@ -17,6 +17,11 @@ dryrun (`launch/dryrun.py`) count a step's FLOPs from one and two trips
 of each loop: on `meta` tensors (shapes only) a cut loop runs its first
 trips and repeats its last output to the full length. Tensors on any
 other device never take the cut.
+
+Both blocks' specs replicate every parameter (the recurrences mix every
+unit at each step), so on DTensor activations (`sharding.tp`) each block
+runs whole on every rank of "model" inside `tp.local`, with no
+collective; the batch stays split over the batch axes.
 """
 from __future__ import annotations
 
@@ -27,7 +32,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import normal, zeros
-from repro_torch.tree import P
+from repro_torch.sharding import tp
+from repro_torch.tree import P, tree_leaves
 
 NEG_INF = -1e30
 M_INIT = -30.0                  # the stabiliser's start: exp(m) ~ 0
@@ -92,8 +98,29 @@ def _slstm_step(cfg, p, state, wx_t):
     return (h_t, c_t, n_t, m_t)
 
 
+def _tp_block(fn, cfg, p, x, n_state: int):
+    """A replicated block's forward on DTensor x: run whole on the local
+    batch; its output and its `n_state` state tensors keep x's
+    placements."""
+    return tp.local(lambda p, x: fn(cfg, p, x), [x.placements] * (1 + n_state),
+                    p, x)
+
+
+def _tp_step(fn, cfg, p, x, state):
+    """A replicated block's decode step on DTensor x, its state the
+    rank's local tensors (written in place and returned)."""
+    def step(p, x, state):
+        out, new = fn(cfg, p, x, state)
+        for d, s in zip(tree_leaves(state), tree_leaves(new)):
+            d.copy_(s)
+        return out
+    return tp.local(step, x.placements, p, x, state), state
+
+
 def slstm_forward(cfg: ModelConfig, p, x, state=None):
     """x: (B,S,D) -> (out, final state)."""
+    if tp.placed(x):
+        return _tp_block(slstm_forward, cfg, p, x, 4)
     b, s, _ = x.shape
     if state is None:
         state = init_slstm_state(cfg, b, x.device)
@@ -120,6 +147,8 @@ def slstm_state_specs(cfg: ModelConfig, batch_axes):
 
 def slstm_decode(cfg: ModelConfig, p, x, state):
     """x: (B,1,D) -> (out (B,1,D), new state)."""
+    if tp.placed(x):
+        return _tp_step(slstm_decode, cfg, p, x, state)
     wx = torch.einsum("bd,gde->gbe", x[:, 0].to(torch.float32),
                       p["w"].to(torch.float32))
     state = _slstm_step(cfg, p, state, wx)
@@ -173,6 +202,8 @@ def mlstm_forward(cfg: ModelConfig, p, x, state=None):
     """Chunkwise-parallel stabilised form: intra-chunk quadratic plus
     inter-chunk recurrent (C, n, m) state, peak memory O(B * L^2 * H) for
     chunks of length L. x: (B,S,D) -> (out, final state)."""
+    if tp.placed(x):
+        return _tp_block(mlstm_forward, cfg, p, x, 3)
     q, k, v, log_i, log_f, z, dh = _mlstm_qkv_gates(cfg, p, x)
     b, s, h, _ = q.shape
     if state is None:
@@ -240,6 +271,8 @@ def mlstm_state_specs(cfg: ModelConfig, batch_axes):
 
 def mlstm_decode(cfg: ModelConfig, p, x, state):
     """O(1) recurrent update. x: (B,1,D) -> (out (B,1,D), new state)."""
+    if tp.placed(x):
+        return _tp_step(mlstm_decode, cfg, p, x, state)
     q, k, v, log_i, log_f, z, dh = _mlstm_qkv_gates(cfg, p, x)
     qf, kf, vf = (a[:, 0].to(torch.float32) for a in (q, k, v))  # (B,H,dh)
     log_i, log_f = log_i[:, 0], log_f[:, 0]                # (B,H)

@@ -25,6 +25,11 @@ most 2**26 elements along the leading axis, so a step needs params,
 grads and moments plus one piece's temporaries, not whole new trees
 (Minitron-4B's f32 training state alone is 67 GB). Both give the same
 bits: the pieces are elementwise.
+
+DTensor leaves (the tensor-parallel train step, `sharding.tp`) are
+updated through their local shards, since the update is elementwise;
+their moments are placed as the params, and the global norm adds each
+rank's sums with one all-reduce over "model" (`tp.global_norm`).
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ from typing import Any, Callable, NamedTuple, Union
 
 import torch
 
+from repro_torch.sharding import tp
 from repro_torch.tree import tree_leaves, tree_map
 
 Schedule = Union[float, Callable[[torch.Tensor], torch.Tensor]]
@@ -67,11 +73,16 @@ def _pieces(*tensors):
 
 @torch.no_grad()
 def _apply_leaves(leaf_fn, grads, params, *slots) -> None:
-    """p += leaf_fn(g, p, *slot pieces) piece by piece, leaf by leaf."""
-    for g, p, *s in zip(tree_leaves(grads), tree_leaves(params),
-                        *(tree_leaves(t) for t in slots)):
-        for gc, pc, *sc in _pieces(g, p, *s):
+    """p += leaf_fn(g, p, *slot pieces) piece by piece, leaf by leaf (a
+    DTensor leaf through its local shards)."""
+    for leaves in zip(tree_leaves(grads), tree_leaves(params),
+                      *(tree_leaves(t) for t in slots)):
+        for gc, pc, *sc in _pieces(*_locals(leaves)):
             pc.add_(leaf_fn(gc, pc, *sc).to(pc.dtype))
+
+
+def _locals(tensors):
+    return [t.to_local() if tp.placed(t) else t for t in tensors]
 
 
 def apply_updates(params, updates):
@@ -81,6 +92,9 @@ def apply_updates(params, updates):
 
 def global_norm(grads) -> torch.Tensor:
     """sqrt of the sum over leaves (JAX leaf order) of sum(g**2), f32."""
+    leaves = tree_leaves(grads)
+    if leaves and tp.placed(leaves[0]):
+        return tp.global_norm(leaves)
     return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
                           for g in tree_leaves(grads)))
 
@@ -102,7 +116,7 @@ def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
     norm."""
     gn = global_norm(grads)
     scale = _clip_scale(gn, max_norm)
-    for g in tree_leaves(grads):
+    for g in _locals(tree_leaves(grads)):
         g.mul_(scale.to(g.dtype))
     return gn
 
@@ -152,6 +166,8 @@ def adamw(lr: Schedule, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
     """AdamW with decoupled weight decay; moments in f32."""
     def init(params):
         def f32(p):
+            if tp.placed(p):
+                return torch.zeros_like(p, dtype=torch.float32)
             return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
         return {"step": _step0(params), "m": tree_map(f32, params),
                 "v": tree_map(f32, params)}

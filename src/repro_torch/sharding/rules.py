@@ -17,9 +17,13 @@ by its specs with `distribute_tensor`, and `to_local` takes each rank's
 shard back as a plain tensor: the port's kernels read `data_ptr()` and
 never see a DTensor. JAX's rule on divisibility holds: a dimension that
 its axes do not divide raises (DTensor alone would shard it unevenly).
+`sanitize` is the JAX dryrun's exception to it: such a dimension is
+replicated instead (`place_params` lays params out so, for the
+tensor-parallel forward of `tp`).
 """
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 from repro_torch.configs.base import ModelConfig
@@ -102,6 +106,35 @@ def place(tree, mesh, spec_tree):
         return distribute_tensor(t, mesh, placements(spec, mesh),
                                  src_data_rank=None)
     return tree_map(one, tree, spec_tree)
+
+
+def sanitize(spec_tree, shape_tree, mesh):
+    """Drop sharding on dims not divisible by their mesh axes (e.g.
+    whisper's vocab 51,865 on a 16-way model axis, or batch 1 of
+    long_500k on the 16-way data axis): those dims are replicated, as in
+    the JAX dryrun. `shape_tree`: tensors (or anything with `.shape`) in
+    the specs' tree."""
+    sizes = axis_sizes(mesh)
+
+    def fix(spec, leaf):
+        shape = tuple(leaf.shape)
+        parts = list(spec) + [None] * (len(shape) - len(spec))
+        out = []
+        for dim, ax in zip(shape, parts):
+            if ax is None:
+                out.append(None)
+                continue
+            div = math.prod(sizes[a] for a in _axes(ax))
+            out.append(ax if dim % div == 0 else None)
+        return P(*out)
+
+    return tree_map(fix, spec_tree, shape_tree)
+
+
+def place_params(cfg: ModelConfig, params, mesh):
+    """The model's params laid out by `param_specs` after `sanitize`: the
+    tensor-parallel forward's input (`sharding.tp`)."""
+    return place(params, mesh, sanitize(param_specs(cfg), params, mesh))
 
 
 def to_local(tree):

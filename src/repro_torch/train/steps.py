@@ -10,6 +10,13 @@ place (`Optimizer.apply`) and returns the same trees: a new tree of each
 would not fit beside the old one on the card at Minitron-4B's width. The
 JAX package's `unroll` / `scan_unroll` are knobs of its `lax.scan`; the
 port loops in Python and has no counterpart.
+
+With placed params (`sharding.place_params`) the step is tensor-parallel
+(`sharding.tp`): the loss reads the vocabulary-split logits without
+gathering them (`tp.cross_entropy`: the row max and two sums over
+"model"), each gradient is reduced to its parameter's placements (one
+all-reduce over the batch axes per leaf), and clipping and the
+optimizer work on each rank's shards.
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.transformer import (decode_step, forward, init_cache,
                                             init_params, prefill)
 from repro_torch.optim.optimizers import Optimizer, clip_by_global_norm_
+from repro_torch.sharding import tp
 from repro_torch.tree import tree_leaves, tree_unflatten
 
 MOE_AUX_WEIGHT = 0.01
@@ -34,10 +42,16 @@ def lm_loss(cfg: ModelConfig, params, batch, *, remat: str = "block",
     logits, aux = forward(cfg, params, batch["tokens"], extra or None,
                           remat=remat, window_override=window_override,
                           differentiable=True)
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.take_along_dim(logp, batch["labels"][..., None].long(),
-                                dim=-1)[..., 0]
-    ce = torch.mean(nll)
+    if tp.placed(logits):
+        labels = batch["labels"]
+        if not tp.placed(labels):
+            labels = tp.place_batch(labels, logits.device_mesh)
+        ce = tp.mean(tp.cross_entropy(logits, labels))
+    else:
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.take_along_dim(logp, batch["labels"][..., None].long(),
+                                    dim=-1)[..., 0]
+        ce = torch.mean(nll)
     return ce + MOE_AUX_WEIGHT * aux / max(cfg.num_layers, 1), (ce, aux)
 
 
@@ -58,7 +72,10 @@ def loss_and_grads(cfg: ModelConfig, params, batch, *, remat: str = "block",
                                       remat=remat)
             gs = torch.autograd.grad(loss, xs, allow_unused=True,
                                      materialize_grads=True)
-        return (loss.detach(), ce.detach(), aux.detach()), list(gs)
+        # placed params: each gradient reduced over the batch axes
+        gs = [tp.redistribute(g, p.placements) if tp.placed(p) else g
+              for g, p in zip(gs, leaves)]
+        return (loss.detach(), ce.detach(), aux.detach()), gs
 
     if grad_accum == 1:
         losses, grads = grad_fn(batch)
@@ -68,7 +85,8 @@ def loss_and_grads(cfg: ModelConfig, params, batch, *, remat: str = "block",
         raise ValueError(f"batch {b} does not split into {grad_accum} "
                          "microbatches")
     n = b // grad_accum
-    grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    grads = [torch.zeros_like(p, dtype=torch.float32) if tp.placed(p) else
+             torch.zeros(p.shape, dtype=torch.float32, device=p.device)
              for p in leaves]
     sums = [torch.zeros((), dtype=torch.float32, device=leaves[0].device)
             for _ in range(3)]
@@ -149,6 +167,11 @@ def make_serve_step(cfg: ModelConfig, *, window_override: int = 0,
     def serve_step(params, cache, token, pos):
         logits, cache = decode_step(cfg, params, cache, token, pos,
                                     window_override=window_override)
+        if tp.placed(logits):
+            if temperature > 0:
+                raise ValueError("sampling needs unsplit logits; the "
+                                 "tensor-parallel step is greedy")
+            return tp.argmax(logits).to(torch.int32), logits, cache
         if temperature > 0:
             u = torch.rand(logits.shape, generator=generator,
                            device=logits.device)

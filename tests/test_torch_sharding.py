@@ -15,7 +15,7 @@ Tolerances:
   Rademacher rows equal exactly (across the 2^32 wrap);
 * MoE: outputs within 1e-4 (1e-5 for G = 4 against G = 1), load_balance
   within 1e-4, positions in expert equal;
-* dryrun: `_sanitize`, `input_specs` and `model_flops` equal.
+* dryrun: `sanitize`, `input_specs` and `model_flops` equal.
 
 Ranks beyond one: `tests/test_torch_sharding_ranks.py`.
 """
@@ -55,7 +55,8 @@ from repro_torch.models.transformer import (forward, init_cache, meta_params,
                                             param_specs)
 from repro_torch.optim import adamw
 from repro_torch.sharding import (cache_specs, local_shape, named,
-                                  opt_state_specs, place, to_local)
+                                  opt_state_specs, place, sanitize, to_local,
+                                  tp)
 from repro_torch.tree import P, tree_leaves, tree_map, tree_paths
 
 
@@ -75,7 +76,6 @@ def host_mesh():
 @pytest.fixture(autouse=True)
 def _reset_moe():
     yield
-    moe.set_sharded_impl(None)
     moe.set_dispatch_spec(1)
     jmoe.set_sharded_impl(None)
     jmoe.set_dispatch_spec(None, num_groups=1)
@@ -306,9 +306,10 @@ def test_grouped_dispatch_drops_per_group_as_jax():
 
 @pytest.mark.parametrize("arch", ["grok-1-314b", "kimi-k2-1t-a32b"])
 def test_sharded_moe_at_world_1_matches_jax(host_mesh, arch):
-    """`apply_moe_sharded` on the (1, 1) mesh against the JAX
-    `moe_forward` under `set_sharded_impl(make_host_mesh())`, as
-    `tests/test_perf_features.py` holds the JAX path to its global one."""
+    """The expert-parallel path (params and tokens placed on the (1, 1)
+    mesh) against the JAX `moe_forward` under
+    `set_sharded_impl(make_host_mesh())`, as `tests/test_perf_features.py`
+    holds the JAX path to its global one."""
     jcfg, cfg, jp, pp = _moe_layer(arch, {"moe_capacity_factor": 50.0}, 0)
     x = np.random.RandomState(1).randn(2, 32, cfg.d_model).astype(np.float32)
     jm = j_host_mesh()
@@ -316,14 +317,15 @@ def test_sharded_moe_at_world_1_matches_jax(host_mesh, arch):
     with jm:
         want, jaux = jax.jit(lambda p_, x_: jmoe.moe_forward(jcfg, p_, x_))(
             jp, jnp.asarray(x))
-    moe.set_sharded_impl(host_mesh.get_group("model"))
-    got, aux = moe.moe_forward(cfg, pp, torch.from_numpy(x))
+    got, aux = moe.moe_forward(
+        cfg, place(pp, host_mesh, moe.moe_specs(cfg)),
+        tp.place_batch(torch.from_numpy(x), host_mesh))
+    got = got.to_local()
     assert float(np.max(np.abs(_np(got) - np.asarray(want)))) < 1e-4
     assert abs(float(aux["load_balance"])
                - float(jaux["load_balance"])) < 1e-4
     assert abs(float(aux["dropped_frac"])
                - float(jaux["dropped_frac"])) < 1e-6
-    moe.set_sharded_impl(None)
     plain, _ = moe.moe_forward(cfg, pp, torch.from_numpy(x))
     assert float((got - plain).abs().max()) < 1e-5
 
@@ -357,7 +359,7 @@ def test_sanitize_matches_jax_on_the_production_layout(arch):
     cfg = configs.get_config(arch)
     layout = pmesh.make_production_mesh()
     params = meta_params(cfg)
-    got = dryrun._sanitize(param_specs(cfg), params, layout)
+    got = sanitize(param_specs(cfg), params, layout)
     want = jdr._sanitize(j_param_specs(jconfigs.get_config(arch)),
                          _sds(params),
                          _jax_mesh((16, 16), ("data", "model")))
@@ -400,7 +402,18 @@ def test_dryrun_one_on_meta_for_a_reduced_config(monkeypatch):
     res = dryrun.dryrun_one("grok-1-314b", "decode_32k", verbose=False)
     cfg = real("grok-1-314b").reduced()
     assert res["chips"] == 256 and res["device"] == "meta"
-    assert res["collectives"] is None
+    # the tensor-parallel decode step's collectives, from shapes: 8 rows a
+    # data shard, bf16; 4 query / 1 K/V heads do not divide 16, so each
+    # layer gathers q (256 columns) and k, v (64 each), all-reduces the
+    # attention and MoE outputs (256) and the MoE aux pair (f32, once per
+    # axis); one all-reduce of the embedding, and the greedy token's
+    # (value f32, index int64) gathered over 16 ranks
+    rows, d, kvd, layers = 8, 256, 64, 2
+    gathers = layers * rows * (d + 2 * kvd) * 2 + rows * 16 * (4 + 8)
+    reduces = rows * d * 2 + layers * (2 * rows * d * 2 + 2 * 2 * 4)
+    assert res["collectives"]["bytes_by_kind"] == {"all-gather": gathers,
+                                                   "all-reduce": reduces}
+    assert res["collectives"]["num_collectives"] == 1 + layers * 7 + 2
     # params by hand: every dim divides 16 here except the router's 4
     # experts and the 4 kv heads; bf16
     want = 0

@@ -65,14 +65,15 @@ def _moe_x(cfg, seed):
 
 
 def _rank_checks(rank, world, x):
-    """One rank: its sharded LSH sums and code, both MoE layers through
-    `apply_moe_sharded` on a (1, world) mesh, and at world 4 the local
+    """One rank: its sharded LSH sums and code, both MoE layers on
+    params and tokens placed on a (1, world) mesh (`moe_forward`'s
+    expert-parallel path), and at world 4 the local
     shards of params placed on a (2, 2) mesh."""
     from repro_torch.core import lsh
     from repro_torch.launch.mesh import make_device_mesh
     from repro_torch.models import moe
     from repro_torch.models.transformer import init_params, param_specs
-    from repro_torch.sharding import local_shape, place, to_local
+    from repro_torch.sharding import local_shape, place, to_local, tp
     from repro_torch.tree import tree_paths
     out = {}
     n = x.shape[0] // world
@@ -81,16 +82,15 @@ def _rank_checks(rank, world, x):
     out["code"] = lsh.sharded_lsh_code(shard, SEED, BITS).numpy()
 
     mesh = make_device_mesh((1, world), ("data", "model"))
-    moe.set_sharded_impl(mesh.get_group("model"))
     for name in MOE_CASES:
         cfg = _moe_cfg(name)
-        local = to_local(place(_moe_weights(cfg, 1), mesh,
-                               moe.moe_specs(cfg)))
-        got, aux = moe.moe_forward(cfg, local, _moe_x(cfg, 2))
-        out[name] = (got.numpy(), float(aux["load_balance"]),
+        placed = place(_moe_weights(cfg, 1), mesh, moe.moe_specs(cfg))
+        got, aux = moe.moe_forward(cfg, placed,
+                                   tp.place_batch(_moe_x(cfg, 2), mesh))
+        out[name] = (got.to_local().numpy(), float(aux["load_balance"]),
                      float(aux["dropped_frac"]),
-                     {k: tuple(v.shape) for k, v in local.items()})
-    moe.set_sharded_impl(None)
+                     {k: tuple(v.shape) for k, v in
+                      to_local(placed).items()})
 
     if world == 4:
         mesh22 = make_device_mesh((2, 2), ("data", "model"))
@@ -111,20 +111,18 @@ def _rank_checks(rank, world, x):
                     g = g.narrow(d, coord[ax] * want[d], want[d])
             if tuple(t.shape) != want or not torch.equal(t, g):
                 bad.append((path, tuple(t.shape), want))
-        # MoE on the (2, 2) mesh: each data row its own tokens, experts or
-        # FFN width over "model", the aux values averaged over all four
-        moe.set_sharded_impl(mesh22.get_group("model"),
-                             aux_group=torch.distributed.group.WORLD)
+        # MoE on the (2, 2) mesh: each data row its own tokens (the batch
+        # split over "data"), experts or FFN width over "model", the aux
+        # values averaged over all four
         for name in MOE_CASES:
             cfg = _moe_cfg(name)
-            local = to_local(place(_moe_weights(cfg, 1), mesh22,
-                                   moe.moe_specs(cfg)))
-            got, aux = moe.moe_forward(cfg, local,
-                                       _moe_x(cfg, 10 + coord["data"]))
-            out["mesh22_" + name] = (coord["data"], got.numpy(),
+            weights = place(_moe_weights(cfg, 1), mesh22, moe.moe_specs(cfg))
+            x = torch.cat([_moe_x(cfg, 10 + row) for row in range(2)])
+            got, aux = moe.moe_forward(cfg, weights,
+                                       tp.place_batch(x, mesh22))
+            out["mesh22_" + name] = (coord["data"], got.to_local().numpy(),
                                      float(aux["load_balance"]),
                                      float(aux["dropped_frac"]))
-        moe.set_sharded_impl(None)
         out["mesh22_bad"] = bad
         out["mesh22_leaves"] = len(list(tree_paths(placed)))
     return out
