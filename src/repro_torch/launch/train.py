@@ -6,12 +6,22 @@ the synthetic token stream, with checkpoint and resume.
         --arch phi3-medium-14b --steps 20 --batch 4 --seq 64
     PYTHONPATH=src python -m repro_torch.launch.train --arch minitron-4b \\
         --full --steps 4 --batch 2 --seq 512 --remat block
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch recurrentgemma-2b --full --steps 4 --batch 2 --seq 512 \\
+        --remat block
 
+Every arch of the zoo trains: the dense models, the MoE (the load-balance
+term in the loss), the RG-LRU hybrid, xLSTM, the Whisper
+encoder-decoder and the cross-attention VLM, whose batches carry the
+stream's audio frames or vision patches to the device with the tokens.
 Runs on the CUDA device unless `--device` names another. The reduced
-config is the default; `--full` takes the published widths (Minitron-4B
-in f32 holds 67 GB of params, grads and AdamW moments on the card). The
-JAX launcher's `unroll` / `scan_unroll` are knobs of its `lax.scan`; the
-port runs its layers in a Python loop and has no counterpart.
+config is the default; `--full` takes the published widths and depth.
+In f32, params, grads and AdamW moments take 16 bytes a parameter:
+Minitron-4B 67 GB, recurrentgemma-2b 57 GB, whisper-small and
+xlstm-350m under 7 GB fit one 80 GB card; grok-1, kimi-k2 and
+llama-3.2-vision do not, even at one layer. The JAX launcher's `unroll`
+/ `scan_unroll` are knobs of its `lax.scan`; the port runs its layers in
+a Python loop and has no counterpart.
 """
 from __future__ import annotations
 

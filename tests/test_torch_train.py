@@ -393,16 +393,20 @@ def test_checkpoint_store_keeps_the_jax_layout(tmp_path):
         ckpt.save(pdir, 5, tree, keep_last_k=0)
 
 
-def test_train_resumes_bitwise(tmp_path):
+@pytest.mark.parametrize("arch", ["minitron-4b", "kimi-k2-1t-a32b",
+                                  "whisper-small"])
+def test_train_resumes_bitwise(tmp_path, arch):
     """`train()` resumed from its step-2 snapshot equals the
-    uninterrupted run: the same losses and the same final params."""
+    uninterrupted run: the same losses and the same final params; for
+    kimi-k2 with the MoE aux term in the loss, for whisper with the
+    stream's audio frames in every batch."""
     kw = dict(steps=4, batch=2, seq=8, log_every=1, device="cpu", log=None)
-    want, hist = train("minitron-4b", **kw)
+    want, hist = train(arch, **kw)
     d = str(tmp_path / "ck")
-    train("minitron-4b", ckpt_dir=d, ckpt_every=2, **kw)
+    train(arch, ckpt_dir=d, ckpt_every=2, **kw)
     assert ckpt.steps(d) == [2, 4]
     os.remove(os.path.join(d, "step_00000004.npz"))
-    got, resumed = train("minitron-4b", ckpt_dir=d, **kw)
+    got, resumed = train(arch, ckpt_dir=d, **kw)
     assert [h["step"] for h in resumed] == [2, 3]
     assert [h["loss"] for h in resumed] == [h["loss"] for h in hist[2:]]
     assert all(torch.equal(a, b) for a, b in zip(tree_leaves(got),
