@@ -153,6 +153,17 @@
    and each step's dropped_frac. Prints per run the parameters, s per
    step, tokens/s, peak memory and the profiled step's device busy ms,
    idle share and launches.
+5b. The twins of the JAX package's smoke scripts and examples
+   (`examples_path`, after training): `scripts/torch_{service,chaos,ann,
+   tiled}_smoke.py` and `examples/torch_{attack_resilience,quickstart,
+   serve_batch,train_lm}.py`, each `main(argv)` called in this process
+   on the card at its JAX script's sizes (train_lm 20 of its 200 steps),
+   counts set to 0 just before each and read just after: each must
+   launch the kernels of its row in `EXAMPLES` (train_lm none), and its
+   own assertions fail the run. One `examples` line per twin: seconds,
+   launches and the numbers its `main` returns (service requests/s,
+   chaos fault trace, ANN recall and K, attack accuracies, serve_batch
+   prefill s and decode tokens/s, train_lm losses and s a step).
 6. Sharding (`sharding_path`, after training, before the service):
    (a) a vector of Minitron-4B's 4,190,309,376 parameters, padded to
    4,190,310,400 and hashed from a seed by global index
@@ -295,8 +306,8 @@
    process).
 9. Prints {"phase": "seconds", ...}, the wall seconds of each section
    (build, kernel checks, main paths, profiles, attack, baselines,
-   serve, families, train, train_families, sharding, sharding_tp,
-   fed_dryrun, analysis, service),
+   serve, families, train, train_families, examples, sharding,
+   sharding_tp, fed_dryrun, analysis, service),
    then
    {"kernels": [...]}
    for every kernel of the paths driven (the
@@ -2264,6 +2275,61 @@ def train_families_path(torch, kernels):
     emit({"phase": "train_families", **row})
 
 
+# the examples phase: each twin of a JAX script or example, its argv (the
+# JAX script's sizes; train_lm's 200 steps cut to 20) and the kernels it
+# must launch on the card (train_lm: none may)
+ONESHOT = ("lsh_projection", "selection", "exchange")
+EXAMPLES = (
+    ("scripts/torch_service_smoke.py", [], ONESHOT),
+    ("scripts/torch_chaos_smoke.py", [], ONESHOT),
+    ("scripts/torch_ann_smoke.py", [], ("selection_ann_grouped", "selection")),
+    ("scripts/torch_tiled_smoke.py", [],
+     ("selection_tiled", "exchange_streamed")),
+    ("examples/torch_attack_resilience.py", [], ONESHOT),
+    ("examples/torch_quickstart.py", [],
+     ONESHOT + ("lsh_single", "hamming", "flash_attention")),
+    ("examples/torch_serve_batch.py", [], ("flash_attention",)),
+    ("examples/torch_train_lm.py", ["--steps", "20"], ()),
+)
+
+
+def load_twin(path: str):
+    """The twin's module, imported from its file in the repository."""
+    import importlib.util
+    name = Path(path).stem
+    spec = importlib.util.spec_from_file_location(name, ROOT / path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_path(torch, kernels):
+    """The twins of the JAX package's smoke scripts and examples, each
+    `main(argv)` called in this process on the card, every kernel's count
+    set to 0 just before and read just after: each kernel of its row in
+    `EXAMPLES` must launch, and train_lm none. A twin's own assertions
+    fail the run. One line per twin: seconds, launches and the numbers
+    its `main` returns."""
+    for path, argv, used in EXAMPLES:
+        mod = load_twin(path)
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = mod.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {name: k.launches for name, k in kernels.items()}
+        emit({"phase": "examples", "script": path, "argv": argv,
+              "seconds": seconds, "launches": launches, **res})
+        missing = [name for name in used if launches[name] == 0]
+        if missing:
+            raise AssertionError(f"{path} launched no {missing} kernel")
+        if not used and any(launches.values()):
+            raise AssertionError(f"{path} launched a kernel: {launches}")
+        torch.cuda.empty_cache()
+
+
 # the sharding phase: 4 gloo ranks on cuda:0 (two NCCL ranks cannot share
 # one card), each made by torch.multiprocessing's spawn
 SHARD_WORLD = 4
@@ -3816,7 +3882,7 @@ def main() -> int:
 
     # 3. the main paths: one-shot kernels, plain versions, tiled kernels,
     # ANN selection; then the per-client code and the unfused Eq. 6-8
-    oneshot = ("lsh_projection", "selection", "exchange")
+    oneshot = ONESHOT
     tiled = ("lsh_projection", "selection_tiled", "exchange_streamed")
     ann_path = ("lsh_projection", "selection_ann_grouped", "exchange")
     hist, launches, state = run_main_path(run_federation, kernels,
@@ -3887,6 +3953,12 @@ def main() -> int:
     # kimi-k2 at published widths cut to 1 layer of 16 experts
     train_families_path(torch, kernels)
     lap("train_families")
+    torch.cuda.empty_cache()
+
+    # 6b. the twins of the JAX package's smoke scripts and examples, each
+    # through its kernels
+    examples_path(torch, kernels)
+    lap("examples")
     torch.cuda.empty_cache()
 
     # 7. sharding: sharded LSH codes at Minitron-4B's parameter count and

@@ -21,24 +21,47 @@ def _forbidden(module: str) -> bool:
     return top in FORBIDDEN
 
 
+# the one `torch_*` script that is a named comparison against the JAX
+# package, not part of the port
+JAX_COMPARISONS = (ROOT / "scripts" / "torch_tp_collectives_vs_jax.py",)
+# the twins of the JAX package's smoke scripts and examples
+TWINS = ("scripts/torch_service_smoke.py", "scripts/torch_chaos_smoke.py",
+         "scripts/torch_ann_smoke.py", "scripts/torch_tiled_smoke.py",
+         "examples/torch_attack_resilience.py", "examples/torch_quickstart.py",
+         "examples/torch_serve_batch.py", "examples/torch_train_lm.py")
+
+
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    scripts = sorted(ROOT.glob("examples/torch_*.py")) + \
+        sorted(ROOT.glob("scripts/torch_*.py"))
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + \
+        [p for p in scripts if p not in JAX_COMPARISONS]
+
+
+def _imports(path):
+    """(line, module) of every absolute import in `path`, nested ones
+    included."""
+    tree = ast.parse(path.read_text(), str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from ((node.lineno, a.name) for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module or ""
 
 
 def test_no_jax_or_repro_imports_in_the_port():
+    """The package, chip_smoke.py and every `examples/torch_*.py` and
+    `scripts/torch_*.py` but the named JAX comparisons."""
+    files = _port_files()
+    assert {ROOT / t for t in TWINS} <= set(files)
+    assert all(p.exists() for p in JAX_COMPARISONS)
+    assert all(any(_forbidden(m) for _, m in _imports(p))
+               for p in JAX_COMPARISONS)
     offending = []
-    for path in _port_files():
-        tree = ast.parse(path.read_text(), str(path))
-        for node in ast.walk(tree):
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom) and node.level == 0:
-                names = [node.module or ""]
-            else:
-                continue
-            offending += [f"{path.relative_to(ROOT)}:{node.lineno} {n}"
-                          for n in names if _forbidden(n)]
-    assert len(_port_files()) > 20 and offending == []
+    for path in files:
+        offending += [f"{path.relative_to(ROOT)}:{line} {m}"
+                      for line, m in _imports(path) if _forbidden(m)]
+    assert len(files) > 20 and offending == []
 
 
 _CHILD = """
