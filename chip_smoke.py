@@ -237,16 +237,19 @@
    its own, so its seconds and peak include the allocator's growth; the
    16-client segments below run first and build and load every kernel),
    which launches its path's LSH, selection
-   and exchange kernels and flash, no other, and flash exactly
-   2 x (M + M x N) times per personal exchange and 2 x M per public one
-   (2 layers), so never in the update; each protocol phase's
-   synchronised wall seconds (`timed_phases`). At 256 clients every
-   client's wq, wk and wv in every layer moved, and the device busy time
-   is estimated from profiled forwards and local steps. Each run prints
+   and exchange kernels and flash, no other, and flash exactly 2 x 2
+   times per personal exchange and 2 x 1 per public one (2 layers of the
+   exchange's vmapped forward calls, the own forwards and the neighbour
+   web, each one launch through the flash op's vmap rule), so never in
+   the update; each protocol phase's synchronised wall seconds
+   (`timed_phases`). At 256 clients every client's wq, wk and wv in
+   every layer moved, and the device busy time is estimated from the
+   profiled vmapped calls of a period (`unit_busy_ms`: the own forwards,
+   the neighbour web, one local step of all M clients). Each run prints
    the dry run's JSON (the JAX keys, flops, wall_s, peak, state and temp
    bytes) with its launches and set-up seconds. 16 clients drawn on the
    CPU, one segment on the card through flash, one on the card under
-   `set_attn_impl("naive")` and one on the CPU: ids equal, flash 288
+   `set_attn_impl("naive")` and one on the CPU: ids equal, flash 4
    launches and none in the other two, flops equal; flash against naive
    and card against CPU within FED16_LIMITS: the relative L2 distance of
    the worst leaf of the new Adam moments m and v (they hold the
@@ -263,7 +266,16 @@
    the tiled at 1,024 and the grouped ANN at 256 (128 bits, N = 8); the
    one-shot exchange at (256, 8, 8, 1,024) and the streamed at (1,024,
    8, 8, 1,024); flash at B 8, S 32, 4 query over 1 KV head, dh 64,
-   causal, f32 and bf16.
+   causal, f32 and bf16, and through its vmap rule as the neighbour web
+   calls it at 256 clients (a nested vmap over 256 x 8 of B 8: a folded
+   B of 16,384, bf16; one launch), and at the f32 contract point under
+   vmap within the contract's 2e-5, its taint wrapper rule firing once
+   with the inputs' labels on the output. Then one `client_axis` line:
+   the card, the one-shot mnist round's seconds (round 1 of the main
+   path, unprofiled; and under the profiler), idle share and host ms
+   per phase (the profile of 3), the dry run's seconds a period at 256
+   and 1,024 clients, its peak at 1,024 and `unit_busy_ms`; the whole
+   script's seconds come with the `seconds` line at the end.
 7. The continuous service (`service_path`, last, since it holds cuDNN
    to deterministic algorithms): `run_service_federation("mnist",
    periods=4, reselect_every=4)` on the card with churn
@@ -1150,6 +1162,105 @@ def check_flash(torch, n, sq, sk, dh, causal, dtype, gen, heads=None):
                 bound_ms=bms, bound_by=by,
                 cuda_core_bound_ms=flop / F32_FLOP_PER_S * 1e3,
                 launches=flash_attention.KERNEL.launches - n0)
+
+
+def check_flash_vmapped(torch, outer, b, s, h, kvh, dh, dtype, gen):
+    """The flash kernel through its vmap rule, as the federation's
+    neighbour web calls it: a nested vmap over `outer` = (clients,
+    neighbours) of the GQA wrapper on (B, S, H, dh) queries and (B, S,
+    KV, dh) keys and values, causal, one launch on the folded batch of
+    prod(outer) * B sequences; against the plain version on that folded
+    batch (2e-5 in f32, 2e-2 in bf16). `library_ms`: SDPA on the folded
+    tensors, heads next to the batch, KV heads repeated. Bound as
+    `check_flash`'s."""
+    from torch.func import vmap
+
+    from repro_torch.kernels import flash_attention
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q = torch.randn((*outer, b, s, h, dh), generator=gen, device="cuda")
+    k, v = (torch.randn((*outer, b, s, kvh, dh), generator=gen,
+                        device="cuda") for _ in range(2))
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    nb = math.prod(outer) * b
+    fq, fk, fv = (t.reshape(nb, *t.shape[len(outer) + 1:])
+                  for t in (q, k, v))
+    fn = lambda a, b_, c: flash_attention.gqa_attention(  # noqa: E731
+        a, b_, c, causal=True)
+    for _ in outer:
+        fn = vmap(fn)
+
+    def call():
+        with torch.no_grad():
+            return fn(q, k, v)
+
+    plain = lambda: flash_attention.plain_gqa_attention(  # noqa: E731
+        fq, fk, fv, True, 0.0)
+    qh = fq.movedim(2, 1)
+    kh, vh = (t.movedim(2, 1).repeat_interleave(h // kvh, dim=1)
+              for t in (fk, fv))
+    lib = lambda: sdpa(qh, kh, vh, is_causal=True)  # noqa: E731
+    n0 = flash_attention.KERNEL.launches
+    o = call()
+    launches = flash_attention.KERNEL.launches - n0
+    pl = plain()
+    torch.cuda.synchronize()
+    err = (o.reshape(pl.shape).float() - pl.float()).abs().max().item()
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    if launches != 1 or not err < tol:
+        raise AssertionError(f"vmapped flash at {outer} x {(b, s, h, kvh, dh)}"
+                             f" {dtype}: {launches} launches, max abs err "
+                             f"{err}")
+    del o, pl
+    t = timings(call, ("flash_fwd_kernel",), plain, library_fn=lib,
+                plain_iters=5)
+    flop = float(flash_attention.attention_flops(nb, h, s, s, dh, True))
+    rate = F32_3XTF32_FLOP_PER_S if dtype == torch.float32 \
+        else BF16_FLOP_PER_S
+    bms, by = bound(q.element_size() * (2.0 * q.numel() + 2.0 * k.numel()),
+                    flop / rate)
+    return dict(**t, max_abs_err=err, bound_ms=bms, bound_by=by,
+                launches=launches, folded_b=nb)
+
+
+def flash_vmap_contract_and_taint(torch):
+    """The flash contract point (f32, `kernel_contract`'s make_args) under
+    a vmap over two copies, within the contract's atol of its twin on
+    the card, and the taint check on that vmapped call: the wrapper rule
+    fires once, with one launch, and the output carries exactly the
+    inputs' labels."""
+    from torch.func import vmap
+
+    from repro_torch.analysis import taint
+    from repro_torch.analysis.registry import REGISTRY
+    from repro_torch.kernels import flash_attention
+    entry = REGISTRY["flash_attention"]
+    args, kwargs = entry.make_args(entry.points[0])
+    q, k, v = (torch.stack([t, t.flip(0)]).cuda() for t in args)
+
+    def fn(q, k, v):
+        with torch.no_grad():
+            return vmap(lambda a, b, c: flash_attention.gqa_attention(
+                a, b, c, **kwargs))(q, k, v)
+
+    n0 = flash_attention.KERNEL.launches
+    run = taint.run_labelled("flash-vmap", fn, (q, k, v),
+                             (taint.SRC_PARAMS, taint.SRC_DATA, ""))
+    launches = flash_attention.KERNEL.launches - n0
+    want = torch.stack([entry.twin_call((q[i], k[i], v[i]), kwargs)
+                        for i in range(2)])
+    err = (run.out - want).abs().max().item() if run.out is not None \
+        else None
+    labels = sorted(run.engine.of(run.out)) if run.out is not None else []
+    ok = (not run.findings and launches == 1 and err is not None
+          and err <= entry.atol and run.engine.kernels == {"flash_attention"}
+          and labels == sorted([taint.SRC_PARAMS, taint.SRC_DATA]))
+    if not ok:
+        raise AssertionError(f"vmapped flash contract / taint: findings "
+                             f"{[str(f) for f in run.findings]}, launches "
+                             f"{launches}, err {err}, rules "
+                             f"{run.engine.kernels}, labels {labels}")
+    return {"launches": launches, "max_abs_err": err, "atol": entry.atol,
+            "wrapper_rules": sorted(run.engine.kernels), "labels": labels}
 
 
 GEMM_NAMES = re.compile(r"gemm|xmma|cutlass|cublas", re.IGNORECASE)
@@ -3327,29 +3438,47 @@ def attention_weights(torch, params):
 
 
 def unit_busy_ms(torch, dr):
-    """Device busy ms of one client forward on a reference batch (no grad:
-    flash) and of one local step (`local_update`), each profiled over a
-    few calls on client 0."""
-    from repro_torch.core.protocol import client, local_update
-    params, opt_state = client(dr.state.params, 0), client(
-        dr.state.opt_state, 0)
-    x_ref = dr.data["x_ref"][0]
-    data_i = {k: dr.data[k][0] for k in ("x_train", "y_train", "x_ref")}
-    target = torch.zeros((dr.fed.ref_batch, dr.cfg.vocab_size),
-                         device="cuda")
-    has = torch.ones((), dtype=torch.bool, device="cuda")
-    idx = torch.randint(0, 64, (1, 64), device="cuda")
+    """Device busy ms of each vmapped call of a period's exchange and
+    update, each profiled over a few calls: the M clients' own forwards
+    on their reference batches (no grad: flash through its vmap rule),
+    the personal neighbour web over (M, N) gathered params, and one local
+    step of all M clients (`batched_local_update`, its chunks
+    included)."""
+    from torch.func import vmap
 
-    def fwd():
+    from repro_torch.core.protocol import batched_local_update, neighbour_web
+    fed, params, data = dr.fed, dr.state.params, dr.data
+    m = fed.num_clients
+    n = min(fed.num_neighbors, m - 1)
+    ids = (torch.arange(m, device="cuda")[:, None] + 1
+           + torch.arange(n, device="cuda")) % m
+    data_per = {k: data[k] for k in ("x_train", "y_train", "x_ref")}
+    target = torch.zeros((m, fed.ref_batch, dr.cfg.vocab_size),
+                         device="cuda")
+    has = torch.ones((m,), dtype=torch.bool, device="cuda")
+    n_local = data["x_train"].shape[1]
+    idx = torch.randint(0, n_local, (m, 1, min(fed.local_batch, n_local)),
+                        device="cuda")
+    one_step = dataclasses.replace(fed, local_steps=1)
+
+    def own():
         with torch.no_grad():
-            dr.apply_fn(params, x_ref)
+            vmap(dr.apply_fn)(params, data["x_ref"])
+
+    def web():
+        with torch.no_grad():
+            neighbour_web(dr.apply_fn, params, data["x_ref"], ids)
 
     def step():
-        local_update(dr.apply_fn, dr.optimizer, dr.fed, params, opt_state,
-                     data_i, target, has, idx)
+        batched_local_update(dr.apply_fn, dr.optimizer, one_step, params,
+                             dr.state.opt_state, data_per, target, has,
+                             batch_idx=idx)
 
-    return {"forward": device_ms(fwd, iters=16),
-            "local_step": device_ms(step, iters=4)}
+    out = {"own_forwards": device_ms(own, iters=4)}
+    if fed.ref_mode == "personal":
+        out["neighbour_web"] = device_ms(web, iters=2)
+    out["local_step"] = device_ms(step, iters=2) * fed.local_steps
+    return out
 
 
 # How far two 16-client segments from one state may lie apart: the
@@ -3444,9 +3573,9 @@ def fed_dryrun_path(torch, kernels):
                            seen.last["exchange_phase"])
     (dc, rc, tc, lc, call), (_, rn, _, ln, _), (dp, rp, tp, lp, _) = (
         runs["cuda", "auto"], runs["cuda", "naive"], runs["cpu", "auto"])
-    if (lc, ln, lp) != (2 * (16 + 16 * 8), 0, 0):
+    if (lc, ln, lp) != (2 * 2, 0, 0):
         raise AssertionError(f"16 clients: flash launched {(lc, ln, lp)} "
-                             f"times (card, naive, CPU), not (288, 0, 0)")
+                             f"times (card, naive, CPU), not (4, 0, 0)")
     for label, ro in (("naive", rn), ("CPU", rp)):
         if not torch.equal(rc[1]["neighbor_ids"].cpu(),
                            ro[1]["neighbor_ids"].cpu()):
@@ -3509,8 +3638,9 @@ def fed_dryrun_path(torch, kernels):
         torch.cuda.synchronize()
         set_up_s = time.perf_counter() - t0
         m, g = dr.fed.num_clients, kw.get("reselect_every", 1)
-        n = min(dr.fed.num_neighbors, m - 1)
-        fwd = m + (m * n if dr.fed.ref_mode == "personal" else 0)
+        # vmapped forward calls per exchange: the own forwards, and the
+        # neighbour web in personal mode
+        calls = 2 if dr.fed.ref_mode == "personal" else 1
         before = (attention_weights(torch, dr.state.params)
                   if label == "default" else None)
         for k in kernels.values():
@@ -3522,11 +3652,11 @@ def fed_dryrun_path(torch, kernels):
         expect_launches(launches, FED_PATHS[label] + ("flash_attention",),
                         set(kernels) - set(FED_PATHS[label])
                         - {"flash_attention"}, f"fed_dryrun {label}")
-        if launches["flash_attention"] != g * 2 * fwd:
+        if launches["flash_attention"] != g * 2 * calls:
             raise AssertionError(
                 f"fed_dryrun {label}: flash launched "
-                f"{launches['flash_attention']} times, not {g * 2 * fwd} "
-                f"(2 layers x the exchanges' forwards)")
+                f"{launches['flash_attention']} times, not {g * 2 * calls} "
+                f"(2 layers x the exchanges' vmapped forward calls)")
         extra = {}
         if label == "default":
             # the update trains attention: every client's projections
@@ -3539,7 +3669,7 @@ def fed_dryrun_path(torch, kernels):
                                      f"(leaf, client) pairs did not train, "
                                      f"e.g. {frozen[:3]}")
             busy = unit_busy_ms(torch, dr)
-            est = (fwd * busy["forward"] + m * busy["local_step"]) / 1e3
+            est = g * sum(busy.values()) / 1e3
             extra = {"attention_trained": True, "unit_busy_ms": busy,
                      "device_busy_s_estimate": est,
                      "device_idle_share_estimate": 1.0 - est / report[
@@ -3576,6 +3706,17 @@ def fed_dryrun_path(torch, kernels):
          lambda dt=dt: check_flash(torch, 8, 32, 32, 64, True, dt, gen,
                                    heads=(4, 1)))
         for dt in (torch.float32, torch.bfloat16)
+    ] + [
+        # the neighbour web's call at 256 clients: vmap over 256 clients
+        # of vmap over 8 neighbours of 8 reference sequences
+        ("flash_attention_vmapped", dict(outer=(256, 8), b=8, s=32, h=4,
+                                         kv=1, dh=64, causal=True,
+                                         dtype="bfloat16"),
+         lambda: check_flash_vmapped(torch, (256, 8), 8, 32, 4, 1, 64,
+                                     torch.bfloat16, gen)),
+        ("flash_attention_vmapped", dict(contract_point=True, copies=2,
+                                         dtype="float32"),
+         lambda: flash_vmap_contract_and_taint(torch)),
     ]
     for name, shape, run in checks:
         res = run()
@@ -3691,6 +3832,7 @@ def analysis_path(torch):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3919,10 +4061,12 @@ def main() -> int:
     names = (*LSH_NAMES, "fused_select_kernel",
              "fused_exchange_kernel", "select_tiled_kernel",
              *STREAMED_EXCHANGE_NAMES, "select_ann_grouped_kernel")
+    profiles = {}
     for backend, tiling in (("kernel", "oneshot"), ("kernel", "tiled"),
                             ("ann", "auto")):
-        emit({"phase": "profile", **profile_round(
-            run_federation, names, tiling=tiling, backend=backend)})
+        profiles[backend, tiling] = profile_round(
+            run_federation, names, tiling=tiling, backend=backend)
+        emit({"phase": "profile", **profiles[backend, tiling]})
     lap("profiles")
 
     # 4. the paper's threats and comparisons on the card
@@ -3979,8 +4123,21 @@ def main() -> int:
     # at 256 and 1,024 clients, attention trained, flash launches, card
     # against CPU, the path's kernels at its shapes
     torch.cuda.empty_cache()
-    fed_dryrun_path(torch, kernels)
+    dry = fed_dryrun_path(torch, kernels)
     lap("fed_dryrun")
+    mnist = profiles["kernel", "oneshot"]
+    emit({"phase": "client_axis", "card": smi,
+          "mnist_round_s": hist[1]["seconds"],
+          "mnist_round_profiled_s": mnist["wall_ms"] / 1e3,
+          "mnist_idle_share": mnist["device_idle_share"],
+          "mnist_phases_host_ms": mnist["phases_ms"],
+          "fed_dryrun_period_s": {"256": dry["default"]["wall_s"],
+                                  "1024": dry["ci"]["wall_s"]},
+          "fed_dryrun_peak_gb_1024": dry["ci"]["peak_bytes"] / 1e9,
+          "unit_busy_ms": dry["default"]["unit_busy_ms"],
+          "device_idle_share_estimate_256": dry["default"][
+              "device_idle_share_estimate"],
+          "fed_dryrun_phase_s": laps["fed_dryrun"]})
 
     # 8. the analysis gate: contract launches, shared-memory mirrors, the
     # taint targets through the kernels, the leak fixtures
@@ -3992,7 +4149,8 @@ def main() -> int:
     # deterministic algorithms for the rest of the process)
     service_path(torch, kernels)
     lap("service")
-    emit({"phase": "seconds", **laps})
+    emit({"phase": "seconds", "card": smi, **laps,
+          "total": time.perf_counter() - t_start})
 
     # 10. every ported kernel
     meta = {

@@ -19,9 +19,10 @@ torch.
 The engine:
 
   * Propagation runs in a `TorchDispatchMode`, which sees every aten op
-    with its inputs and outputs, in the forward and in autograd's
-    backward (`torch.autograd.grad` in `protocol.local_update`), under
-    `torch.func.vmap` and `functional_call`. Labels are keyed on a
+    with its inputs and outputs, in the forward and in the backward (the
+    vmapped `torch.func.grad_and_value` of `protocol.
+    batched_local_update`), under `torch.func.vmap` and
+    `functional_call`. Labels are keyed on a
     tensor's storage (device, storage pointer), so a write through a
     view taints its base; a weak reference to the storage tells a live
     key from an address the allocator has handed out again. An op's
@@ -35,7 +36,12 @@ The engine:
     each wrapper registered with `registry.kernel_contract` gives its
     outputs the union of its tensor inputs' labels (`kernel_value`), the
     rule the JAX engine applies to `pallas_call`. Without it every
-    target on the card would pass vacuously.
+    target on the card would pass vacuously. Flash attention reaches its
+    kernel through a custom op (`repro_torch::gqa_attention`, for its
+    vmap rule), which the dispatch mode does see: once per call, on the
+    folded batch, its output fresh with the union of the inputs' labels.
+    The wrapper rule then adds that same union, so the two agree and a
+    label is never counted twice (`tests/test_torch_client_axis.py`).
   * Host reads are seen by a `TorchFunctionMode` (the dispatch mode does
     not see `tolist` of a CPU tensor); the dispatch mode adds the ones
     that reach `_local_scalar_dense` or copy device memory to the host

@@ -18,19 +18,23 @@ epoch is their global body. Every body takes `batch_idx` (M,
 local_steps, mb), the minibatch indices (the parity tests pass the JAX
 package's), and ProxyFL's global round `peer_ids` (M, num_peers); by
 default both are drawn from the round's generators
-(`protocol.round_generator`). The `make_*_round` constructors are the
-classic per-round adapters over the programs.
+(`protocol.round_generator`). Each client-axis forward is one
+`torch.func.vmap` over the stacked params, as the JAX package's
+`jax.vmap`, and every update is `protocol.batched_local_update`. The
+`make_*_round` constructors are the classic per-round adapters over the
+programs.
 """
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
 import torch
+from torch.func import vmap
 
 from repro_torch.configs.paper_models import FedConfig
 from repro_torch.core import verify
 from repro_torch.core.protocol import (PICK_STREAM, UPDATE_STREAM, FedState,
-                                       batched_local_update, client,
+                                       batched_local_update, neighbour_web,
                                        round_generator)
 from repro_torch.core.rounds import RoundProgram, program_round
 
@@ -62,12 +66,10 @@ def _flag(m: int, value: bool, like: torch.Tensor) -> torch.Tensor:
 @torch.no_grad()
 def _peer_mean(apply_fn, params, x_ref, ids: torch.Tensor) -> torch.Tensor:
     """(M, R, C): for each client i the mean of its peers' (ids[i])
-    outputs on its own reference set x_ref[i]."""
-    rows = ids.tolist()  # analysis: host-ok ids index the forward loop
-    return torch.stack([
-        torch.stack([apply_fn(client(params, j), x_ref[i])
-                     for j in rows[i]]).mean(0)
-        for i in range(len(rows))])
+    outputs on its own reference set x_ref[i], one nested vmap over the
+    gathered peer params."""
+    return neighbour_web(apply_fn, params, x_ref,
+                         ids.to(torch.int64)).mean(1)
 
 
 def silo_program(apply_fn, optimizer, fed: FedConfig) -> RoundProgram:
@@ -96,8 +98,8 @@ def fedmd_program(apply_fn, optimizer, fed: FedConfig,
     def round_body(state: FedState, data, batch_idx=None):
         x = torch.as_tensor(shared_ref_x, device=data["x_train"].device)
         with torch.no_grad():
-            logits = torch.stack([apply_fn(client(state.params, i), x)
-                                  for i in range(m)])          # (M, R, C)
+            logits = vmap(apply_fn, in_dims=(0, None))(state.params,
+                                                       x)      # (M, R, C)
         data_per = {"x_train": data["x_train"], "y_train": data["y_train"],
                     "x_ref": x[None].expand(m, *x.shape)}
         state, metrics = _update_round(
@@ -151,20 +153,18 @@ def proxyfl_program(apply_fn, optimizer, fed: FedConfig,
 
 def kdpdfl_program(apply_fn, optimizer, fed: FedConfig) -> RoundProgram:
     """Similarity-only selection: the top-N by output KL on each
-    client's own reference set. The global round pays M forwards of all
-    M reference sets (the M x M outputs); gossip epochs reuse the cached
-    ids at M*N forwards."""
+    client's own reference set. The global round pays the M x M outputs
+    (every model on every reference set, one nested vmap); gossip epochs
+    reuse the cached ids at M*N forwards."""
     m = fed.num_clients
     n = min(fed.num_neighbors, m - 1)
 
     def global_round(state: FedState, data, batch_idx=None):
-        x_ref = data["x_ref"]                                # (M, R, ...)
         with torch.no_grad():
-            flat = x_ref.reshape(-1, *x_ref.shape[2:])
-            # y_all[i, j]: model j on client i's reference set
-            y_all = torch.stack([
-                apply_fn(client(state.params, j), flat).reshape(
-                    *x_ref.shape[:2], -1) for j in range(m)], dim=1)
+            # y_all[i, j]: model j on client i's reference set (vmap
+            # over reference sets i of vmap over models j)
+            y_all = vmap(vmap(apply_fn, in_dims=(0, None)),
+                         in_dims=(None, 0))(state.params, data["x_ref"])
         own = y_all.diagonal(dim1=0, dim2=1).movedim(-1, 0)  # (M, R, C)
         kls = verify.kl_divergence(own[:, None], y_all)       # (M, M)
         eye = torch.eye(m, dtype=torch.bool, device=kls.device)

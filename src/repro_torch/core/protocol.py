@@ -16,18 +16,28 @@ sync adapter over it. The per-client update (`local_update`,
 `batched_local_update`) is shared with `core.baselines`. Each phase
 runs in a profiler span named "wpfed.<phase>" (a no-op without an
 active profiler), which `chip_smoke.py` reads for the per-phase
-breakdown. The M clients'
-parameters are a dict of stacked (M, ...) tensors; forwards and updates
-loop over clients with `apply_fn(params_i, x)`. Randomness comes from
-`torch.Generator`s derived from the federation seed and the round index
-(`round_generator`), drawn on the CPU so that a run draws the same
-numbers on every device.
+breakdown. The M clients' parameters are a dict of stacked (M, ...)
+tensors. As in the JAX round, the client axis is one batched call:
+`apply_fn(params_i, x)` is one client's forward, and every phase maps it
+over the stacked params with `torch.func.vmap` (the personal exchange's
+(M, N) neighbour web as a nested vmap over gathered params); the local
+update is one vmapped `torch.func.grad_and_value` and one vmapped
+optimizer update per local step, over fixed chunks of the client axis
+(`client_chunk`) where one call over all M would not fit. `apply_fn`
+must therefore run under `vmap` and `grad`: no in-place write to a
+captured tensor, no host read, no Python branch on a value. Randomness
+comes from `torch.Generator`s derived from the federation seed and the
+round index (`round_generator`), drawn on the CPU so that a run draws
+the same numbers on every device.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Any, Callable, Dict, NamedTuple, Tuple
 
 import torch
+from torch.func import grad_and_value, vmap
 from torch.profiler import record_function
 
 from repro_torch.analysis.privacy import sink
@@ -38,7 +48,7 @@ from repro_torch.core.exchange import (ExchangeResult, all_in_one_exchange,
                                        public_ref_logits)
 from repro_torch.core.rounds import RoundProgram, program_round
 from repro_torch.optim.optimizers import Optimizer, apply_updates
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 REF_MODES = ("personal", "public")
 # random streams of one round (PICK_STREAM: ProxyFL's peer draw)
@@ -174,31 +184,47 @@ def exchange_phase(apply_fn: Callable, fed: FedConfig, params,
     exchange.
 
     ref_mode="personal": neighbours answer each client's OWN reference
-    set (M*N neighbour forwards). ref_mode="public": every client
-    evaluates the shared reference set (row 0 of data["x_ref"]) once and
-    the (M, N, R, C) web is a gather of those M outputs."""
+    set: the (M, N, R, C) web is one nested vmap over the gathered
+    neighbour params (M, N, ...), the M * N forwards of the JAX round.
+    ref_mode="public": every client evaluates the shared reference set
+    (row 0 of data["x_ref"]) once and the web is a gather of those M
+    outputs. The clients' own forwards are one vmap either way."""
     if fed.ref_mode not in REF_MODES:
         raise ValueError(f"unknown ref_mode: {fed.ref_mode!r} "
                          f"(expected one of {REF_MODES})")
     m = fed.num_clients
-    ids = sel.ids.tolist()  # analysis: host-ok ids index the forward loop
+    ids = sel.ids.to(torch.int64)
     if fed.ref_mode == "public":
-        x_shared = data["x_ref"][0]
-        own_ref = torch.stack([apply_fn(client(params, i), x_shared)
-                               for i in range(m)])
-        y_web = public_ref_logits(own_ref[sel.ids.to(torch.int64)])
+        own_ref = vmap(apply_fn, in_dims=(0, None))(params,
+                                                    data["x_ref"][0])
+        y_web = public_ref_logits(own_ref[ids])
         y_ref = data["y_ref"][0][None].expand(m, -1)
     else:
         x_ref = data["x_ref"]
-        own_ref = torch.stack([apply_fn(client(params, i), x_ref[i])
-                               for i in range(m)])
-        rows = [[apply_fn(client(params, j), x_ref[i]) for j in ids[i]]
-                for i in range(m)]
+        own_ref = vmap(apply_fn)(params, x_ref)
         y_web = public_ref_logits(
-            torch.stack([torch.stack(r) for r in rows]) if ids[0]
+            neighbour_web(apply_fn, params, x_ref, ids) if ids.shape[1]
             else own_ref.new_zeros((m, 0) + own_ref.shape[1:]))
         y_ref = data["y_ref"]
     return all_in_one_exchange(own_ref, y_web, y_ref, sel.sel_mask, fed)
+
+
+def neighbour_web(apply_fn: Callable, params, x_ref: torch.Tensor,
+                  ids: torch.Tensor) -> torch.Tensor:
+    """(M, N, R, ...): neighbour ids[i, j]'s outputs on client i's
+    reference set x_ref[i], one nested vmap over the gathered (M, N, ...)
+    params (vmap over clients i of vmap over their neighbours j), over
+    chunks of `client_chunk` rows i where all M would not fit (a row's
+    share: its N gathered params and the bytes of N forwards)."""
+    m, n = ids.shape
+    one = tree_map(lambda t: t[0], params)
+    row = n * (written_bytes(("forward", apply_fn), apply_fn, one, x_ref[0])
+               + sum(t.numel() * t.element_size() for t in tree_leaves(one)))
+    chunk = client_chunk(row)
+    web = vmap(vmap(apply_fn, in_dims=(0, None)))
+    return torch.cat([
+        web(tree_map(lambda p: p[ids[c0:c0 + chunk]], params),
+            x_ref[c0:c0 + chunk]) for c0 in range(0, m, chunk)])
 
 
 def update_phase(apply_fn: Callable, optimizer: Optimizer, fed: FedConfig,
@@ -260,28 +286,86 @@ def announce_phase(fed: FedConfig, params, sel: SelectResult,
 # ---------------------------------------------------------------------------
 # local updates (shared with core.baselines)
 # ---------------------------------------------------------------------------
+# bytes that one vmapped call over a chunk of the client axis may write:
+# a client's share is what the ops of its part of the call allocate
+# (`written_bytes`, counted on meta from the call's shapes: an update's
+# one local step, forward, backward and optimizer; a personal web row's
+# N gathered params and N forwards). Written bytes over-count what is
+# live at once, the more so without grad. Set where the readings on an
+# H100 80GB hold: reduced-phi3 clients (mb 64, 8 reference sequences of
+# 32 tokens) write 526 MiB a local step, so 64 a call (peak 68.1 GB
+# beside 1,024 clients' params and Adam state; 128 read 79.3 GB), and
+# 223 MiB a web row, so 256 rows a call (PERF.md, section 4)
+CHUNK_BYTES = 64 << 30
+
+_WRITTEN: Dict[Any, int] = {}
+
+
+def written_bytes(key, fn: Callable, *args) -> int:
+    """Bytes of the tensors that the ops of `fn(*args)` allocate (views
+    and in-place results not counted), run on meta copies of `args`, so
+    the shapes alone decide it. `key` names `fn`: with the shapes and
+    dtypes of `args` it keys a cache, so each function and shape is
+    traced once."""
+    from torch.utils import _pytree as pytree
+    from torch.utils._python_dispatch import TorchDispatchMode
+    leaves = [t for t in tree_leaves(args) if isinstance(t, torch.Tensor)]
+    full = (key, tuple((tuple(t.shape), t.dtype) for t in leaves))
+    if full not in _WRITTEN:
+        class Count(TorchDispatchMode):
+            total = 0
+
+            def __torch_dispatch__(self, func, types, a=(), kw=None):
+                out = func(*a, **(kw or {}))
+                if not any(r.alias_info is not None
+                           for r in func._schema.returns):
+                    Count.total += sum(
+                        t.numel() * t.element_size()
+                        for t in pytree.tree_leaves(out)
+                        if isinstance(t, torch.Tensor))
+                return out
+
+        with Count():
+            fn(*tree_map(lambda t: torch.empty_like(t, device="meta")
+                         if isinstance(t, torch.Tensor) else t, args))
+        if len(_WRITTEN) >= 256:        # each key holds its fn alive
+            _WRITTEN.clear()
+        _WRITTEN[full] = Count.total
+    return _WRITTEN[full]
+
+
+def client_chunk(per_client: int) -> int:
+    """Clients per vmapped call over a chunk of the client axis: the
+    largest power of two (at least 1) whose clients' `per_client` bytes
+    of temporaries fit in CHUNK_BYTES. It comes from the call's shapes
+    alone, so that a run's numbers never depend on the device's free
+    memory."""
+    n = max(1, CHUNK_BYTES // max(per_client, 1))
+    return 1 << (n.bit_length() - 1)
+
+
 def local_update(apply_fn: Callable, optimizer: Optimizer, fed: FedConfig,
                  params, opt_state, data_i: Dict[str, torch.Tensor],
                  target_ref: torch.Tensor, has_target: torch.Tensor,
                  batch_idx: torch.Tensor):
-    """`local_steps` minibatch steps on the combined loss for ONE client:
+    """`local_steps` minibatch steps on the combined loss for ONE client,
+    the function `batched_local_update` vmaps over the client axis:
     params / opt_state one client's trees, data_i its x_train, y_train
     and x_ref, batch_idx (local_steps, mb) int64 on the data's device.
     Returns (params, opt_state, (loss, local_loss, ref_loss) of the last
     step)."""
+    grad_fn = grad_and_value(
+        lambda p, batch, x_ref, target, has: distill.combined_loss(
+            apply_fn, p, batch, x_ref, target, has, fed.alpha), has_aux=True)
     p, s = params, opt_state
     for step in range(fed.local_steps):
         idx = batch_idx[step]
-        batch = {"x": data_i["x_train"][idx], "y": data_i["y_train"][idx]}
-        leaves = {k: v.detach().requires_grad_(True) for k, v in p.items()}
-        loss, (l_loc, l_ref) = distill.combined_loss(
-            apply_fn, leaves, batch, data_i["x_ref"], target_ref, has_target,
-            fed.alpha)
-        grads = dict(zip(leaves, torch.autograd.grad(
-            loss, list(leaves.values()))))
+        grads, (loss, (l_loc, l_ref)) = grad_fn(
+            p, {"x": data_i["x_train"][idx], "y": data_i["y_train"][idx]},
+            data_i["x_ref"], target_ref, has_target)
         updates, s = optimizer.update(grads, s, p)
         p = apply_updates(p, updates)
-    return p, s, torch.stack([loss, l_loc, l_ref]).detach()
+    return p, s, torch.stack([loss, l_loc, l_ref])
 
 
 def batched_local_update(apply_fn: Callable, optimizer: Optimizer,
@@ -290,33 +374,49 @@ def batched_local_update(apply_fn: Callable, optimizer: Optimizer,
                          target_ref: torch.Tensor, has_target: torch.Tensor,
                          *, generator: torch.Generator = None,
                          batch_idx: torch.Tensor = None):
-    """`local_update` for each of the M clients of the stacked trees.
-    data_per holds (M, ...) x_train, y_train and x_ref; target_ref
-    (M, R, C), has_target (M,). `batch_idx` (M, local_steps, mb) fixes
-    the minibatches, else they are drawn in one call from `generator`.
-    Returns (params, opt_state, {"loss", "local_loss", "ref_loss"} (M,))."""
+    """`local_update` vmapped over the M clients of the stacked trees: per
+    local step one batched `grad_and_value` of the combined loss, then
+    the optimizer's update over the stacked state (a per-client `step`).
+    data_per holds (M, ...) x_train, y_train and x_ref; target_ref (M,
+    R, C), has_target (M,). `batch_idx` (M, local_steps, mb) fixes the
+    minibatches, else they are drawn in one call from `generator`. The
+    client axis runs in chunks of `client_chunk` clients (one client's
+    share: the bytes its one local step writes), one after another, each
+    chunk's new trees copied into the (M, ...) outputs; a client's steps
+    do not depend on the chunk. Returns (params, opt_state, {"loss",
+    "local_loss", "ref_loss"} (M,))."""
     m = fed.num_clients
     n_local = data_per["x_train"].shape[1]
     mb = min(fed.local_batch, n_local)
     if batch_idx is None:
         batch_idx = torch.randint(0, n_local, (m, fed.local_steps, mb),
                                   generator=generator)
-    batch_idx = batch_idx.to(device=data_per["x_train"].device,
-                             dtype=torch.int64)
-    new_params, new_opt, losses = [], [], []
-    for i in range(m):
-        p, s, loss = local_update(
-            apply_fn, optimizer, fed, client(params, i),
-            client(opt_state, i),
-            {k: v[i] for k, v in data_per.items()},
-            target_ref[i], has_target[i], batch_idx[i])
-        new_params.append(p)
-        new_opt.append(s)
+    dev = data_per["x_train"].device
+    batch_idx = batch_idx.to(device=dev, dtype=torch.int64)
+    args = (params, opt_state, data_per, target_ref, has_target, batch_idx)
+    one_step = dataclasses.replace(fed, local_steps=1)
+    chunk = client_chunk(written_bytes(
+        ("local_update", apply_fn, optimizer, one_step),
+        functools.partial(local_update, apply_fn, optimizer, one_step),
+        *tree_map(lambda t: t[0], args[:5]), batch_idx[0, :1]))
+    update_fn = vmap(functools.partial(local_update, apply_fn, optimizer,
+                                       fed))
+    new, losses = None, []
+    for c0 in range(0, m, chunk):
+        part = slice(c0, c0 + chunk)
+        p, s, loss = update_fn(*tree_map(lambda t: t[part], args))
+        if chunk >= m:
+            new = (p, s)
+        else:
+            if new is None:
+                new = tree_map(lambda t: t.new_empty((m, *t.shape[1:])),
+                               (p, s))
+            tree_map(lambda out, t: out[part].copy_(t), new, (p, s))
         losses.append(loss)
-    losses = torch.stack(losses)
+    losses = torch.cat(losses)
     metrics = {"loss": losses[:, 0], "local_loss": losses[:, 1],
                "ref_loss": losses[:, 2]}
-    return stack(new_params), stack(new_opt), metrics
+    return new[0], new[1], metrics
 
 
 # ---------------------------------------------------------------------------
@@ -400,10 +500,9 @@ def evaluate(apply_fn: Callable, state: FedState,
              honest_mask: torch.Tensor = None) -> Dict[str, torch.Tensor]:
     """Per-client test accuracy and its mean; with `honest_mask` (M,)
     (bool or 0/1 floats) the mean runs over the honest clients only."""
-    acc = torch.stack([
-        distill.accuracy(apply_fn(client(state.params, i),
-                                  data["x_test"][i]), data["y_test"][i])
-        for i in range(state.codes.shape[0])])
+    acc = vmap(distill.accuracy)(vmap(apply_fn)(state.params,
+                                                data["x_test"]),
+                                 data["y_test"])
     if honest_mask is None:
         return {"per_client_acc": acc, "mean_acc": acc.mean()}
     w = honest_mask.to(device=acc.device, dtype=torch.float32)

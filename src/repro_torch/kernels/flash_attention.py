@@ -28,6 +28,19 @@ than return an output without a gradient.
 `gqa_attention`, the wrapper that launches, registers with
 `analysis.registry.kernel_contract` (class "tolerance": max abs error
 2e-5 in f32 on unit-normal inputs).
+
+The wrapper reaches the kernel through the custom op
+`torch.ops.repro_torch.gqa_attention`, so that the federation's client
+axis can run under `torch.func.vmap` (the JAX counterpart is Pallas's
+own batching rule under `jax.vmap`): a ctypes launch reads
+`data_ptr()`, which a vmapped tensor does not have. The op's vmap rule
+folds the vmapped dimension into B, (V, B, S, H, dh) -> (V * B, S, H,
+dh), calls the op once on the folded tensors and splits the result
+back; nested vmaps fold level by level into one launch. Its fake
+implementation gives the output's shape and dtype. The op runs the
+plain version on the CPU and launches the kernel on the card; `meta`
+tensors, and CPU tensors that need a gradient, take the plain version
+in the wrapper itself (it is differentiable and counts its FLOPs).
 """
 from __future__ import annotations
 
@@ -87,38 +100,14 @@ def _contract_args(point: dict):
     return (q, k, v), {"causal": point["causal"]}
 
 
-@kernel_contract(
-    kernel=KERNEL, stands_for="flash_attention", twin="flash_attention_ref",
-    twin_call=lambda args, kwargs: plain_gqa_attention(
-        *args, kwargs["causal"], 0.0),
-    exactness="tolerance", atol=2e-5,
-    points=({"b": 1, "s": 192, "h": 4, "kv": 2, "dh": 64,
-             "causal": True},),
-    make_args=_contract_args)
-def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True, scale: float = 0.0) -> torch.Tensor:
-    """q (B, Sq, H, dh), k/v (B, Sk, KV, dh), H a multiple of KV ->
-    (B, Sq, H, dh) in q's dtype."""
-    if k.device != q.device or v.device != q.device:
-        raise ValueError(f"q, k and v must be on one device, got "
-                         f"{q.device} / {k.device} / {v.device}")
-    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape or \
-            k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3] or \
-            k.shape[2] == 0 or q.shape[2] % k.shape[2]:
-        raise ValueError(f"q must be (B, Sq, H, dh) and k, v (B, Sk, KV, dh) "
-                         f"with H a multiple of KV, got {tuple(q.shape)} / "
-                         f"{tuple(k.shape)} / {tuple(v.shape)}")
-    if q.device.type in PLAIN_DEVICES:
-        return plain_gqa_attention(q, k, v, causal, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise RuntimeError(
-            "the flash-attention kernel has no backward, so its output "
-            "would carry no gradient to q, k or v; train through the "
-            "differentiable route: transformer.forward(..., "
-            "differentiable=True), as train.steps.lm_loss does")
+def _needs_grad(q, k, v) -> bool:
+    return torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad)
+
+
+def _launch(q, k, v, causal: bool, scale: float) -> torch.Tensor:
+    """One launch of the kernel on CUDA tensors q (B, Sq, H, dh), k, v
+    (B, Sk, KV, dh)."""
     b, sq, h, dh = q.shape
     kvh, sk = k.shape[2], k.shape[1]
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -140,6 +129,75 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   *v.stride()[:3], *out.stride()[:3], float(scale),
                   int(causal))
     return out
+
+
+@torch.library.custom_op("repro_torch::gqa_attention", mutates_args=())
+def gqa_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     causal: bool, scale: float) -> torch.Tensor:
+    """The op behind `gqa_attention`: the plain version on the CPU, one
+    kernel launch on the card."""
+    if q.device.type in PLAIN_DEVICES:
+        return plain_gqa_attention(q, k, v, causal, scale)
+    return _launch(q, k, v, causal, scale)
+
+
+@gqa_attention_op.register_fake
+def _gqa_attention_fake(q, k, v, causal, scale):
+    return q.new_empty(q.shape)
+
+
+def _fold(t: torch.Tensor, dim, size: int) -> torch.Tensor:
+    """`t` with its vmapped dimension `dim` (None: not vmapped, so
+    broadcast to `size`) merged into the batch: (V, B, ...) -> (V * B,
+    ...)."""
+    t = t.expand(size, *t.shape) if dim is None else t.movedim(dim, 0)
+    return t.reshape(size * t.shape[1], *t.shape[2:])
+
+
+@gqa_attention_op.register_vmap
+def _gqa_attention_vmap(info, in_dims, q, k, v, causal, scale):
+    """One launch for every vmapped call: fold, call, split."""
+    n = info.batch_size
+    out = gqa_attention_op(*(_fold(t, d, n) for t, d in zip((q, k, v),
+                                                            in_dims[:3])),
+                           causal, scale)
+    return out.reshape(n, -1, *out.shape[1:]), 0
+
+
+@kernel_contract(
+    kernel=KERNEL, stands_for="flash_attention", twin="flash_attention_ref",
+    twin_call=lambda args, kwargs: plain_gqa_attention(
+        *args, kwargs["causal"], 0.0),
+    exactness="tolerance", atol=2e-5,
+    points=({"b": 1, "s": 192, "h": 4, "kv": 2, "dh": 64,
+             "causal": True},),
+    make_args=_contract_args)
+def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, scale: float = 0.0) -> torch.Tensor:
+    """q (B, Sq, H, dh), k/v (B, Sk, KV, dh), H a multiple of KV ->
+    (B, Sq, H, dh) in q's dtype. Runs under `torch.func.vmap` (one launch
+    per call, through the op's vmap rule)."""
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"q, k and v must be on one device, got "
+                         f"{q.device} / {k.device} / {v.device}")
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape or \
+            k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3] or \
+            k.shape[2] == 0 or q.shape[2] % k.shape[2]:
+        raise ValueError(f"q must be (B, Sq, H, dh) and k, v (B, Sk, KV, dh) "
+                         f"with H a multiple of KV, got {tuple(q.shape)} / "
+                         f"{tuple(k.shape)} / {tuple(v.shape)}")
+    dev = q.device.type
+    if dev == "meta" or (dev in PLAIN_DEVICES and _needs_grad(q, k, v)):
+        return plain_gqa_attention(q, k, v, causal, scale)
+    if dev not in PLAIN_DEVICES and dev != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if dev == "cuda" and _needs_grad(q, k, v):
+        raise RuntimeError(
+            "the flash-attention kernel has no backward, so its output "
+            "would carry no gradient to q, k or v; train through the "
+            "differentiable route: transformer.forward(..., "
+            "differentiable=True), as train.steps.lm_loss does")
+    return gqa_attention_op(q, k, v, bool(causal), float(scale))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

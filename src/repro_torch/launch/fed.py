@@ -239,7 +239,10 @@ def lm_client_fns(cfg, device, dtype=torch.bfloat16, draw_device=None):
     (B, V) in f32, classifying the next token, as the JAX dry run does.
     Under no_grad (the exchange) attention takes the flash kernel; with
     grad enabled (the update) the differentiable route, since the kernel
-    has no backward. `init_fn(generator)` draws one client's
+    has no backward. The round calls `apply_fn` under `torch.func.vmap`
+    over the clients (and over their neighbours), where flash launches
+    once per vmapped call through its op's vmap rule, and under
+    `torch.func.grad` in the update. `init_fn(generator)` draws one client's
     `init_params(cfg, g, dtype)` with a generator on `draw_device`
     (default `device`) seeded by one draw from `generator`: a thousand
     reduced-phi3 clients are 1.6e9 truncated normals, tens of seconds on

@@ -7,7 +7,11 @@ flattened parameter vector that the LSH code hashes is the same in both
 packages; layouts are converted only at the convolution calls. The M
 clients of a federation are a dict of stacked (M, ...) tensors; one
 client is applied with `torch.func.functional_call` on a parameter-free
-template (`apply_client_model`).
+template (`apply_client_model`). The round maps that function over the
+client axis with `torch.func.vmap`, and the local update differentiates
+it with `torch.func.grad`, so the forwards write into no captured
+tensor, read nothing to the host and branch on no value; under vmap a
+convolution with per-client weights becomes a grouped convolution.
 """
 from __future__ import annotations
 

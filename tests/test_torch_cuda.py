@@ -1059,6 +1059,29 @@ def test_served_tokens_equal_with_and_without_the_kernel(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_flash_under_vmap_launches_once_and_matches_plain(cuda, dtype, tol):
+    """A nested vmap over (clients, neighbours) of the GQA wrapper, as the
+    federation's neighbour web calls it: one launch on the folded batch,
+    equal to the plain version within the kernel's tolerance."""
+    from torch.func import vmap
+    g = _gen(3)
+    q = torch.randn((3, 2, 4, 32, 4, 64), generator=g, device=cuda).to(dtype)
+    k = torch.randn((3, 2, 4, 32, 1, 64), generator=g, device=cuda).to(dtype)
+    v = torch.randn((3, 2, 4, 32, 1, 64), generator=g, device=cuda).to(dtype)
+    before = flash_attention.KERNEL.launches
+    with torch.no_grad():
+        out = vmap(vmap(lambda a, b, c: flash_attention.gqa_attention(
+            a, b, c, causal=True)))(q, k, v)
+    assert flash_attention.KERNEL.launches == before + 1
+    want = flash_attention.plain_gqa_attention(
+        q.reshape(24, 32, 4, 64), k.reshape(24, 32, 1, 64),
+        v.reshape(24, 32, 1, 64), True, 0.0).reshape(out.shape)
+    assert (out.float() - want.float()).abs().max() < tol
+
+
+@pytest.mark.cuda
 def test_flash_wrapper_raises_where_a_gradient_would_drop(cuda):
     """The kernel has no backward: with grad mode on and q, k or v
     requiring grad the wrappers raise and name the training route,
@@ -1220,8 +1243,9 @@ def test_analysis_gate_on_the_card(cuda):
 def test_fed_dryrun_segment_matches_the_cpu(cuda, monkeypatch):
     """The federation dry run's segment at 16 clients, weights and data
     drawn on the CPU, on the card and on the CPU: the same ids, flops and
-    has_target; flash launched 2 * (M + M * N) times (the exchange's
-    forwards, 2 layers) and never in the update. Within the limits
+    has_target; flash launched 2 * 2 times (2 layers of the exchange's
+    two vmapped forward calls, the own forwards and the neighbour web,
+    each one launch through the op's vmap rule) and never in the update. Within the limits
     `chip_smoke.py` holds the same pair to (FED16_LIMITS, set from sound
     runs on an H100): the relative L2 distance ||card - cpu|| / ||cpu||
     of the worst leaf of the new Adam moments m and v (after a first
@@ -1248,7 +1272,7 @@ def test_fed_dryrun_segment_matches_the_cpu(cuda, monkeypatch):
         runs[dev] = (dr, state, metrics[0], seen[-1],
                      flash_attention.KERNEL.launches - n0)
     (dc, sc, mc, ec, lc), (dp, sp, mp, ep, lp) = runs["cuda"], runs["cpu"]
-    assert (lc, lp) == (2 * (16 + 16 * 8), 0)
+    assert (lc, lp) == (2 * 2, 0)
     assert torch.equal(mc["neighbor_ids"].cpu(), mp["neighbor_ids"])
     assert fed_launch.segment_flops(dc) == fed_launch.segment_flops(dp)
     assert torch.equal(ec.has_target.cpu(), ep.has_target)
