@@ -268,11 +268,15 @@
    8, 8, 1,024); flash at B 8, S 32, 4 query over 1 KV head, dh 64,
    causal, f32 and bf16, and through its vmap rule as the neighbour web
    calls it at 256 clients (a nested vmap over 256 x 8 of B 8: a folded
-   B of 16,384, bf16; one launch), and at the f32 contract point under
-   vmap within the contract's 2e-5, its taint wrapper rule firing once
-   with the inputs' labels on the output. Then one `client_axis` line:
-   the card, the one-shot mnist round's seconds (round 1 of the main
-   path, unprofiled; and under the profiler), idle share and host ms
+   B of 16,384, bf16; one launch), as the own forwards call it at 256
+   and 1,024 clients (a vmap of B 8: folded B 2,048 and 8,192), each
+   flash check with its launch plan (`flash_attention.flash_plan`:
+   configuration, items, grid, shared memory), and at the f32 contract
+   point under vmap within the contract's 2e-5, its taint wrapper rule
+   firing once with the inputs' labels on the output. Then one
+   `client_axis` line: the card, the one-shot mnist round's seconds
+   (round 1 of the main path, unprofiled; and under the profiler), idle
+   share and host ms
    per phase (the profile of 3), the dry run's seconds a period at 256
    and 1,024 clients, its peak at 1,024 and `unit_busy_ms`; the whole
    script's seconds come with the `seconds` line at the end.
@@ -1101,6 +1105,19 @@ def check_hamming(torch, m, bits, gen):
                 launches=hamming.KERNEL.launches - n0)
 
 
+def flash_plan_summary(flash_attention, b, sq, sk, h, kvh, dh, dtype,
+                       causal):
+    """The launch plan of a flash call (`flash_attention.flash_plan`) on
+    this card's SMs, as the kernel reads their count: configuration,
+    items, blocks (grid) and shared memory per block."""
+    import torch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = flash_attention.flash_plan(b, sq, sk, h, kvh, dh, dtype, causal,
+                                      sms)
+    return {k: plan[k] for k in ("config", "items", "rows_per_item", "bk",
+                                 "grid", "blocks_per_sm", "smem_bytes")}
+
+
 def check_flash(torch, n, sq, sk, dh, causal, dtype, gen, heads=None):
     """The flash-attention kernel against its plain version on unit-normal
     (N, S, dh) inputs, or with `heads` = (H, KV) on the model's (B, S, H,
@@ -1161,7 +1178,9 @@ def check_flash(torch, n, sq, sk, dh, causal, dtype, gen, heads=None):
     return dict(**t, max_abs_err=err, library_max_abs_err=lib_err,
                 bound_ms=bms, bound_by=by,
                 cuda_core_bound_ms=flop / F32_FLOP_PER_S * 1e3,
-                launches=flash_attention.KERNEL.launches - n0)
+                launches=flash_attention.KERNEL.launches - n0,
+                plan=flash_plan_summary(flash_attention, n, sq, sk, h, kvh,
+                                        dh, dtype, causal))
 
 
 def check_flash_vmapped(torch, outer, b, s, h, kvh, dh, dtype, gen):
@@ -1219,7 +1238,9 @@ def check_flash_vmapped(torch, outer, b, s, h, kvh, dh, dtype, gen):
     bms, by = bound(q.element_size() * (2.0 * q.numel() + 2.0 * k.numel()),
                     flop / rate)
     return dict(**t, max_abs_err=err, bound_ms=bms, bound_by=by,
-                launches=launches, folded_b=nb)
+                launches=launches, folded_b=nb,
+                plan=flash_plan_summary(flash_attention, nb, s, s, h, kvh,
+                                        dh, dtype, True))
 
 
 def flash_vmap_contract_and_taint(torch):
@@ -3714,6 +3735,16 @@ def fed_dryrun_path(torch, kernels):
                                          dtype="bfloat16"),
          lambda: check_flash_vmapped(torch, (256, 8), 8, 32, 4, 1, 64,
                                      torch.bfloat16, gen)),
+    ] + [
+        # the own forwards' call: vmap over the clients of 8 reference
+        # sequences (personal at 256, public at 1,024)
+        ("flash_attention_vmapped", dict(outer=(m,), b=8, s=32, h=4, kv=1,
+                                         dh=64, causal=True,
+                                         dtype="bfloat16"),
+         lambda m=m: check_flash_vmapped(torch, (m,), 8, 32, 4, 1, 64,
+                                         torch.bfloat16, gen))
+        for m in (256, 1024)
+    ] + [
         ("flash_attention_vmapped", dict(contract_point=True, copies=2,
                                          dtype="float32"),
          lambda: flash_vmap_contract_and_taint(torch)),

@@ -1,5 +1,6 @@
-// Flash-attention forward (online softmax) for Hopper (sm_90a), on the
-// tensor cores through wgmma, with an asynchronous K/V ring.
+// Flash-attention forward (online softmax) for Hopper (sm_90a): persistent
+// blocks over packed GQA rows, on the tensor cores through wgmma, with a
+// K/V ring handed over by mbarriers.
 //
 // Replaces repro/kernels/flash_attention.py:flash_attention
 // (_flash_kernel): out = softmax(q k^T * scale + mask) v for every head,
@@ -15,34 +16,94 @@
 // dimension contiguous; query head h reads KV head h / (H / KV), so the
 // GQA repeat is never materialised. Any Sq and Sk, 1 <= dh <= 256.
 //
-// Bound on the H100 (SXM, 700 W): operations. The serving prefill (N = 96
-// heads, Sq = Sk = 2048, dh = 128, causal) does 4 * N * S(S+1)/2 * dh =
-// 1.03e11 f32-accurate operations against 0.2 GB of q, k, v and out.
-// f32 inputs take 3xTF32 (three TF32 products per f32 product, below):
-// 495 / 3 = 165 TFLOP/s of f32 work, 0.62 ms. bf16 inputs take one bf16
-// product for q k^T and two for P V: at most 989 TFLOP/s, 0.10 ms.
+// Bound on the H100 (SXM, 700 W): the larger of q, k, v and out moved once
+// at 3.35 TB/s and 4 * H * pairs * dh operations on the tensor cores. f32
+// inputs take 3xTF32 (three TF32 products per f32 product, below): 495 / 3
+// = 165 TFLOP/s of f32 work; bf16 inputs one bf16 product for q k^T and two
+// for P V: at most 989 TFLOP/s. The serving prefill (96 heads, Sq = Sk =
+// 2048, dh 128, causal) is bound by operations: 1.03e11, 0.62 ms in f32,
+// 0.10 ms in bf16. The federation's neighbour web (B 16,384, S 32, 4 query
+// heads over 1 KV head, dh 64, bf16, causal) is bound by bytes: 670 MB,
+// 0.200 ms.
 //
-// Design. One block per (head, tile of BQ = 64 * NWG query rows); the
-// longest query tiles of a head are scheduled first, and causal blocks
-// stop at the diagonal's last K/V tile.
+// Design.
+// - Work items: (batch, KV head, tile of BQ = 64 * NWG packed rows). The
+//   G = H / KV query heads of a KV head are packed into the rows, position
+//   major (FlashAttention-3's PackGQA): packed row r is query position
+//   r / G of head kvh * G + r % G. A K/V tile is read, and in f32 split,
+//   once per item for all G heads, and the causal mask reads the position
+//   r / G. At the web shape an item is 32 positions x 4 heads: 128 live
+//   rows. G = 1 is the identity (one head per item, rows in order).
+// - Persistent blocks over a static schedule: with more items than
+//   MINB * SMs resident blocks, the grid is that many blocks (at most one
+//   per pair of items), and block x takes pairs of items x, x + grid, ...
+//   Items are numbered (batch, KV head) by (batch, KV head), each one's
+//   row tiles in the order nt - 1, 0, nt - 2, 1, ...: a pair is the
+//   longest tile left, first, and the shortest, so every pair has the
+//   same causal work, and the grid works on some grid / (nt / 2) (batch,
+//   KV head)s at a time, whose K/V stay in the L2. With fewer items, one
+//   item a block. The block's K/V tiles form one stream across its
+//   items, so the ring runs ahead into the next item. The next item's Q
+//   is in flight while this item computes (two Q buffers where shared
+//   memory allows; else it is loaded after the epilogue, behind the ring's
+//   tiles), and O leaves through shared memory by 16-byte stores.
 // - Threads: NWG = 2 warpgroups of 128 threads (1 at f32 dh 256), each
-//   owning 64 query rows, and no producer warp: 8 warps put 2 on each of
-//   the SM's four 16K-register files, so every thread may hold 255
+//   owning 64 rows of the item, and no producer warp: 8 warps put 2 on
+//   each of the SM's four 16K-register files, so every thread may hold 255
 //   registers (f32 dh 128 needs more than 168 for O, Q-hi, S and P). A
-//   producer warp or warpgroup makes 3 warps per register file and caps
-//   the compiled code at 168 registers; this toolchain's ptxas does not
-//   compile the consumers to a setmaxnreg budget, and at 168 it
-//   serialises every wgmma and spills.
-// - The K/V ring: STAGES stages of one BK-key tile, filled S - 1 tiles
-//   ahead by cp.async from all threads (16 bytes each, zero-filled past
-//   Sk and dh) and handed over by __syncthreads. f32 splits each tile in
-//   shared memory once it has landed, while the previous tile's Q K^T
-//   runs: K's raw f32 is the TF32 hi (wgmma reads an f32 in shared
-//   memory as TF32 by keeping its top 19 bits), K-lo = TF32(K - hi) is a
-//   second copy, and V, staged raw in the V^T-lo buffer, becomes V^T-hi
-//   and V^T-lo (TF32 wgmma takes only K-major operands, and V's
-//   reduction axis is its keys). bf16 K and V are used as copied: V is an
-//   MN-major B operand.
+//   producer warp makes 3 warps per register file and caps the compiled
+//   code at 168 registers; this toolchain's ptxas does not compile the
+//   consumers to a setmaxnreg budget, and at 168 it serialises every wgmma
+//   and spills. The short configuration (bf16, dh <= 64, Sk <= 32) is
+//   compiled for two resident blocks per SM.
+// - The ring: STAGES stages of one BK-key tile, filled STAGES - LAG tiles
+//   ahead (LAG 2 for bf16's 3-4 stages, 1 for f32's 1-2). Every thread
+//   copies its 16-byte chunks by cp.async (zero-filled past Sk and dh)
+//   and arrives on the stage's "full" mbarrier with
+//   cp.async.mbarrier.arrive.noinc, which fires once its copies have
+//   landed. Each warp then "prepares" the tile: f32 splits its warpgroup's
+//   keys of it (below), and a proxy fence orders the copies before the
+//   wgmma reads; the warp arrives on the stage's "ready" mbarrier. Every
+//   warp arrives on the stage's "empty" mbarrier once its products on the
+//   stage have retired, and the loader refills the stage of tile s - LAG
+//   during tile s. The loop has no __syncthreads: bf16 prepares a tile
+//   ahead and its warpgroups may drift a whole tile apart, so one's
+//   softmax runs under the other's wgmma; f32's two stages keep them
+//   within a tile's products of each other. A fence waits for the
+//   thread's copies in flight, so a tile is prepared where the thread's
+//   newest copies are the ones just waited for. The copies stay per
+//   thread: wgmma reads its operands in 8-row x 16-byte core matrices,
+//   where a row's 16-byte chunks lie a core-matrix column apart, and a
+//   bulk copy writes one contiguous run. Each warpgroup's Q has its own
+//   mbarriers.
+// - The issue of a wgmma blocks the warp about as long as the product
+//   runs, and so does the issue of a tile's copies (an SM has few
+//   requests in flight). So the aligned instance of f32 with 2 stages
+//   issues tile s + 1's copies in passes between tile s's Q K^T products
+//   and splits tile s + 1 between the products of the first P V slice
+//   (the wait for the copies after the first k-step, then a step of each
+//   thread's task after each k-step, the fence after the slice).
+// - Two instances of every configuration: one for q, k and v rows that
+//   are all 16-byte aligned, whose loops hold no element-by-element
+//   staging, and one that stages unaligned rows through registers. The
+//   staging's registers cost the aligned loops spills and left the
+//   compiler too few uniform registers for the wgmma descriptors.
+// - Divisions by G, by the items per (batch, KV head) and by KV go
+//   through `Div` (a multiply-high and a shift, the multiplier from the
+//   host): a division by a value known only at run time is a chain of
+//   some 20 dependent instructions, which cost short items microseconds,
+//   and the loader's item arithmetic inside the tile loop took the
+//   uniform registers of the wgmma descriptors (147 `R2UR` a tile loop
+//   at f32 dh 128, none without it). A tile's causal and Sk mask is one
+//   compare per score against a per-row limit.
+// - f32 splits each tile in shared memory once it has landed, under the
+//   first 64 columns of the previous tile's P V, each warpgroup the keys
+//   of its half: K's raw f32 is the TF32 hi (wgmma reads an f32 in shared
+//   memory as TF32 by keeping its top 19 bits), V, staged raw in the K-lo
+//   buffer, becomes V^T-hi and V^T-lo (TF32 wgmma takes only K-major
+//   operands, and V's reduction axis is its keys), and K-lo = TF32(K -
+//   hi) then takes the raw V's place, each thread over the chunks it has
+//   read. bf16 K and V are used as copied: V is an MN-major B operand.
 // - Products (wgmma, m64nNk8 tf32 / m64nNk16 bf16, f32 accumulators):
 //   f32 S = Qhi Khi + Qhi Klo + Qlo Khi (3xTF32; the dropped lo*lo term
 //   is 2^-22 relative) with Q-hi as register A fragments and Q-lo in
@@ -50,7 +111,8 @@
 //   shared memory (exact products). O += P V with P from registers: f32
 //   Phi Vhi + Plo Vhi + Phi Vlo; bf16 P = Phi + Plo split into two bf16
 //   (V exact), so the bf16 route keeps the plain version's f32
-//   arithmetic to about 2^-16.
+//   arithmetic to about 2^-16. bf16 at dh <= 128 commits the P V products
+//   of every 64-column slice as one group.
 // - P stays in registers: the row max and sum are quad shuffles on the
 //   accumulator fragment (a thread holds rows g and g + 8 of its warp's
 //   16, columns 8j + 2t, 8j + 2t + 1), in base 2 with the scale folded
@@ -67,24 +129,28 @@
 //   HBM3, 700 W, against 1.5e-6 for CUDA-core FMAs). So the small
 //   hi x lo products of S chain into their own accumulator, and each
 //   tile's P V chains into a fresh one that O takes with a rounded add.
-// - Shared memory per block (bytes; the budget is 232,448):
-//     f32  dh <=  64: 2 WG, BK 64, 2 stages: Q 33,280 + 2 x 70,656 = 174,592
-//     f32  dh <= 128: 2 WG, BK 32, 2 stages: Q 66,560 + 2 x 70,912 = 208,384
-//     f32  dh <= 256: 1 WG, BK 16, 1 stage:  Q 133,120 + 71,808    = 204,928
-//     bf16 dh <=  64: 2 WG, BK 64, 4 stages: Q 16,640 + 4 x 16,640 = 83,200
-//     bf16 dh <= 128: 2 WG, BK 64, 4 stages: Q 33,280 + 4 x 33,280 = 166,400
-//     bf16 dh <= 256: 2 WG, BK 32, 3 stages: Q 66,560 + 3 x 33,792 = 167,936
+// - Shared memory per block: mbarriers (128 bytes), the Q buffers and the
+//   ring's stages (`Cfg::SMEM`, within the H100's 232,448 bytes; its
+//   Python mirror is `kernels/flash_attention.py:config_smem_bytes`).
 //   A stage holds K, K-lo, V^T-hi and V^T-lo for f32, K and V for bf16;
-//   f32 at dh 256 keeps Q-hi and Q-lo (two copies of its 64 rows).
+//   f32 at dh 256 keeps Q-hi and Q-lo (two copies of its 64 rows). A
+//   warpgroup's Q buffer stages its O for the stores once its last
+//   product has retired. `flash_plan_field` exports the plan (shared
+//   memory, items, grid, tiles) for the wrapper's mirror.
 // - Alignment: cp.async needs 16-byte aligned rows: the base pointer and
 //   every stride used (batch, sequence, head, in bytes) and dh * itemsize
 //   multiples of 16 (f32 dh a multiple of 4, bf16 of 8). Other views (bf16
 //   dh = 100, odd offsets) are staged element by element through
-//   registers by the same threads into the same layout. Rows past Sk and
-//   columns past dh are zero in shared memory; only tiles that reach past
-//   Sk or cross the diagonal are masked per element.
+//   registers by the same threads into the same layout, and stored element
+//   by element. Rows past Sk and columns past dh are zero in shared
+//   memory; only tiles that reach past Sk or cross the diagonal are masked
+//   per element.
+// - A wait on an mbarrier that has not completed after about 2^34 cycles
+//   (some 9 s) traps, so a fault in the hand-over ends the launch with an
+//   error rather than hanging the card.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -95,22 +161,13 @@ namespace {
 constexpr float NEG_INF = -1e30f;
 constexpr int WG = 128;            // threads of a warpgroup
 
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 // ---------------------------------------------------------------- PTX
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// generic-proxy shared-memory writes before the async proxy (wgmma) reads
+// generic-proxy shared-memory accesses before the async proxy's (wgmma)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
@@ -124,13 +181,46 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                "l"(src), "r"(bytes)
                : "memory");
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
 }
-// waits until at most N of this thread's newest groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// an arrival on `bar` that fires once every cp.async this thread issued
+// before it has landed (counted in the barrier's arrivals: .noinc)
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// waits until the phase of parity `parity` of `bar` has completed; the
+// loop is PTX with uniform branches, one opaque instruction to the
+// compiler. After 2^34 cycles it traps.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .u64 t0, t1;\n"
+      "mov.u64 t0, %%clock64;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra.uni DONE;\n"
+      "mov.u64 t1, %%clock64;\n"
+      "sub.u64 t1, t1, t0;\n"
+      "setp.gt.u64 p, t1, 17179869184;\n"
+      "@p trap;\n"
+      "bra.uni WAIT;\n"
+      "DONE:\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
 }
 
 __device__ __forceinline__ void warpgroup_sync(int id) {
@@ -356,34 +446,88 @@ struct Tile {
   }
 };
 
-template <typename T, int DH_, int NWG_, int BK_, int STAGES_>
+// DH_: head dims (a multiple of 64); NWG_: warpgroups; BK_: keys per
+// stage; STAGES_: ring stages; QBUF_: Q buffers per warpgroup; MINB_:
+// resident blocks per SM the code is compiled for.
+template <typename T, int DH_, int NWG_, int BK_, int STAGES_, int QBUF_,
+          int MINB_>
 struct Cfg {
   static constexpr bool F32 = std::is_same<T, float>::value;
   static constexpr int DH = DH_, NWG = NWG_, BK = BK_, STAGES = STAGES_;
-  static constexpr int BQ = 64 * NWG;
+  static constexpr int QBUF = QBUF_, MINB = MINB_;
+  static constexpr int BQ = 64 * NWG;            // packed rows per item
   static constexpr int THREADS = WG * NWG;
   static constexpr int E = 16 / (int)sizeof(T);  // elements per chunk
   static constexpr int KE = 2 * E;  // wgmma depth: 8 tf32, 16 bf16
   static constexpr int CK = DH / E;              // chunks per row
+  static constexpr int RS = THREADS / CK;  // rows a copy pass covers
+  static constexpr int KP = BK / RS;       // copy passes of K (and of V)
+  static constexpr int NS = DH / 64;             // 64-column slices of O
   static constexpr int SPLIT = F32 ? 2 : 1;      // hi (+ lo) copies
   static constexpr bool QLO_SMEM = F32 && DH > 128;
   static constexpr int QCOPIES = QLO_SMEM ? 2 : 1;
+  // slices of P V committed as one group (each into its own accumulator)
+  static constexpr int PVG = (F32 || DH > 128) ? 1 : NS;
+  static constexpr int PK = BK / NWG;  // keys each warpgroup splits (f32)
+  // the loader refills the stage of tile s - LAG during tile s: f32 (2
+  // stages) the tile just done, bf16 the one before, so its warpgroups
+  // may drift a whole tile apart
+  static constexpr int LAG = STAGES >= 3 ? 2 : 1;
+  // bf16 prepares tile s + PREP at the top of tile s (f32: tile s + 1
+  // under tile s's P V, or with one stage tile s itself)
+  static constexpr int PREP = STAGES - LAG - 1;
+  // f32 with 2 stages prepares tile s + 1 under tile s's P V and (the
+  // aligned instance) copies it between tile s's Q K^T products (an issue
+  // of the copies blocks the warp about as long as they take to land)
+  static constexpr bool SPLIT_COPY = F32 && STAGES == 2;
+
+
   using QT = Tile<64, CK, 128>;      // a warpgroup's 64 rows x head dims
   using KT = Tile<BK, CK, 128>;      // keys x head dims (also bf16 V)
   using VT = Tile<DH, BK / E, 144>;  // f32 V^T: head dims x keys
   static constexpr int V_BYTES = F32 ? VT::BYTES : KT::BYTES;
-  static constexpr int Q_BYTES = NWG * QCOPIES * QT::BYTES;
+  static constexpr int WQ_BYTES = QCOPIES * QT::BYTES;  // a warpgroup's Q
+  static constexpr int Q_BYTES = NWG * WQ_BYTES;        // one Q buffer
   static constexpr int STAGE_BYTES = SPLIT * (KT::BYTES + V_BYTES);
-  static constexpr int SMEM = Q_BYTES + STAGES * STAGE_BYTES;
+  static constexpr int NBAR = 3 * STAGES + NWG * QBUF;
+  static constexpr int BAR_BYTES = (8 * NBAR + 127) / 128 * 128;
+  static constexpr int OFF_RING = BAR_BYTES + QBUF * Q_BYTES;
+  static constexpr int SMEM = OFF_RING + STAGES * STAGE_BYTES;
   static_assert(SMEM <= 232448, "shared memory over the H100 block limit");
+  static_assert(MINB * (SMEM + 1024) <= 233472,
+                "MINB blocks do not fit one SM's shared memory");
   static_assert(BK % KE == 0 && DH % 64 == 0, "tile shape");
-  static_assert(!F32 || BK * DH * 4 <= VT::BYTES,
-                "f32 V staging: the raw tile fits the V^T-lo buffer");
-
+  static_assert(BK % (8 * NWG) == 0, "f32 splits 8-key groups");
+  static_assert(THREADS % CK == 0 && BK % RS == 0, "whole copy passes");
+  static_assert(64 * CK * 16 <= QT::BYTES, "O staging fits a Q buffer");
 };
 
 struct Strides {
   long long b, s, h;
+};
+
+// x / d and x % d for 0 <= x < 2^31 by a multiply-high and a shift, with
+// the multiplier computed once on the host: a division by a value known
+// only at run time is a chain of some 20 dependent instructions, which the
+// per-row address arithmetic of short items cannot hide
+struct Div {
+  int d;
+  unsigned mul;  // 0 for d = 1
+  int shr;
+  static Div of(int d) {
+    Div r{d, 0u, 0};
+    if (d > 1) {
+      int l = 0;
+      while ((1ll << l) < d) ++l;  // ceil(log2 d)
+      r.mul = (unsigned)(((1ull << (31 + l)) + d - 1) / d);
+      r.shr = l - 1;
+    }
+    return r;
+  }
+  __device__ __forceinline__ int div(int x) const {
+    return mul ? (int)(__umulhi((unsigned)x, mul) >> shr) : x;
+  }
+  __device__ __forceinline__ int mod(int x) const { return x - div(x) * d; }
 };
 
 struct Params {
@@ -392,10 +536,67 @@ struct Params {
   const void* v;
   void* o;
   Strides qs, ks, vs, os;
-  int heads, group, sq, sk, dh, nq, causal;
-  int qvec, kvvec;  // rows 16-byte aligned and whole: 16-byte copies
+  Div group;   // G = H / KV: query heads packed per KV head
+  Div kv;      // KV heads
+  int sq, sk, dh, causal;
+  Div nt;      // items per (batch, KV head): ceil(Sq * G / BQ)
+  int items;   // batch * KV * nt
+  int paired;  // causal, items > resident blocks: blocks take pairs
+  Div grid;    // blocks of the launch
+  int qvec, kvvec, ovec;  // rows 16-byte aligned and whole: 16-byte copies
   float scale;
 };
+
+// One work item: the pointers of (batch, KV head), its first packed row
+// and its K/V tiles. Packed row r adds (r / G) * seq + (r % G) * head
+// stride to q and o.
+template <typename T>
+struct Item {
+  const T* q;
+  const T* k;
+  const T* v;
+  T* o;
+  int r0, nk;
+};
+
+// The item block x computes j-th: `paired` (causal, more items than
+// blocks), the pairs of items x, x + grid, ...; else items x, x + grid, ...
+__device__ __forceinline__ int item_index(int x, int j, int grid,
+                                          int paired) {
+  return paired ? 2 * (x + (j >> 1) * grid) + (j & 1) : x + j * grid;
+}
+
+// The block's item count (the grid is at most the items, or the pairs)
+__device__ __forceinline__ int block_items(int x, const Div& grid,
+                                           int items, int paired) {
+  if (!paired) return grid.div(items - 1 - x) + 1;
+  const int pairs = (items + 1) / 2, last = grid.div(pairs - 1 - x);
+  return 2 * (last + 1) - ((items & 1) && pairs - 1 - x == last * grid.d);
+}
+
+// item i: (batch, KV head) i / nt, its row tiles in the order nt - 1, 0,
+// nt - 2, 1, ...: a pair of items holds the longest and the shortest
+// tile left, equal causal work, of one (batch, KV head)
+template <class C, typename T>
+__device__ __forceinline__ Item<T> item_at(const Params& p, int i) {
+  const int bk = p.nt.div(i), k = i - bk * p.nt.d;
+  const int tile = (k & 1) ? k >> 1 : p.nt.d - 1 - (k >> 1);
+  const int b = p.kv.div(bk), kvh = bk - b * p.kv.d;
+  const long long h0 = (long long)kvh * p.group.d;
+  Item<T> it;
+  it.q = static_cast<const T*>(p.q) + b * p.qs.b + h0 * p.qs.h;
+  it.o = static_cast<T*>(p.o) + b * p.os.b + h0 * p.os.h;
+  it.k = static_cast<const T*>(p.k) + b * p.ks.b + kvh * p.ks.h;
+  it.v = static_cast<const T*>(p.v) + b * p.vs.b + kvh * p.vs.h;
+  it.r0 = tile * C::BQ;
+  int nk = (p.sk + C::BK - 1) / C::BK;
+  if (p.causal) {
+    const int last = p.group.div(min(it.r0 + C::BQ, p.sq * p.group.d) - 1);
+    nk = min(nk, last / C::BK + 1);
+  }
+  it.nk = nk;
+  return it;
+}
 
 // ------------------------------------------------------------ staging
 
@@ -430,117 +631,138 @@ __device__ __forceinline__ uint4 ld16(const char* base, int off) {
   return *reinterpret_cast<const uint4*>(base + off);
 }
 
-// Rows row0 .. row0 + ROWS - 1 of a (nrows, dh) matrix (row stride
-// `stride`) into shared memory, chunk (r, c) at dst + off(r, c), by 16-byte
-// cp.async from `nthreads` threads; rows past nrows and chunks past dh are
-// zero-filled (the aligned path: dh * itemsize is a multiple of 16).
-template <int ROWS, int CH, typename T, typename Off>
-__device__ __forceinline__ void copy_rows(char* dst, Off off, const T* src,
-                                          long long stride, int row0,
-                                          int nrows, int dh, int tid,
-                                          int nthreads) {
-  constexpr int E = 16 / (int)sizeof(T);
-  for (int task = tid; task < ROWS * CH; task += nthreads) {
-    const int r = task / CH, c = task % CH, row = row0 + r;
-    const bool ok = row < nrows && c * E < dh;
-    cp_async16(dst + off(r, c), ok ? src + row * stride + c * E : src,
-               ok ? 16 : 0);
-  }
-}
+template <typename T>
+using Raw = typename std::conditional<sizeof(T) == 4, unsigned int,
+                                      unsigned short>::type;
 
 // Elements [e0, e0 + E) of one row as 16 raw bytes, zero past dh and for
 // a missing row (nullptr), element by element (the unaligned path).
 template <typename T>
 __device__ __forceinline__ uint4 load_chunk(const T* row, int e0, int dh) {
   constexpr int E = 16 / (int)sizeof(T);
-  using Raw = typename std::conditional<sizeof(T) == 4, unsigned int,
-                                        unsigned short>::type;
   union {
     uint4 v;
-    Raw e[E];
+    Raw<T> e[E];
   } u;
   u.v = make_uint4(0u, 0u, 0u, 0u);
   if (row == nullptr) return u.v;
-  const Raw* r = reinterpret_cast<const Raw*>(row);
+  const Raw<T>* r = reinterpret_cast<const Raw<T>*>(row);
 #pragma unroll
   for (int i = 0; i < E; ++i)
     if (e0 + i < dh) u.e[i] = __ldg(r + e0 + i);
   return u.v;
 }
 
-// The aligned path's copies of one K/V tile (keys k0 .. k0 + BK - 1)
-// into a ring stage: K raw as KT (f32: the TF32 hi, since wgmma reads an
-// f32 in shared memory as TF32 by keeping its top 19 bits); bf16 V raw as
-// KT (an MN-major operand); f32 V raw, row-major, into the V^T-lo buffer
-// for `convert_tile`.
-template <class C, typename T>
-__device__ __forceinline__ void copy_tile(const Params& p, char* stage,
-                                          const T* kg, const T* vg, int k0,
-                                          int tid) {
-  using KT = typename C::KT;
-  constexpr int NT = C::THREADS;
-  auto tile = [](int r, int c) { return KT::at(r, c); };
-  copy_rows<C::BK, C::CK>(stage, tile, kg, p.ks.s, k0, p.sk, p.dh, tid, NT);
-  char* v_s = stage + C::SPLIT * KT::BYTES;
-  if constexpr (C::F32) {
-    auto rows = [](int r, int c) { return (r * C::CK + c) * 16; };
-    copy_rows<C::BK, C::CK>(v_s + C::VT::BYTES, rows, vg, p.vs.s, k0, p.sk,
-                            p.dh, tid, NT);
+// A warpgroup's 64 packed rows of an item's Q into q_s (as QT), and the
+// warpgroup's arrival on `bar` once they are there: cp.async (aligned
+// rows), else through registers. Packed row r is position r / G of head
+// kvh * G + r % G; rows past Sq * G and chunks past dh are zero.
+template <class C, typename T, bool VEC>
+__device__ __forceinline__ void load_q(const Params& p, const Item<T>& it,
+                                       char* q_s, int wg, int t,
+                                       uint64_t* bar) {
+  constexpr int CQ = C::CK, E = C::E, RS = WG / CQ;
+  const int wr0 = it.r0 + 64 * wg, nrows = p.sq * p.group.d;
+  const int c = t % CQ;  // this thread's chunk of rows t / CQ + RS u
+  const bool col = c * E < p.dh;
+#pragma unroll 4
+  for (int u = 0; u < 64 / RS; ++u) {
+    const int r = t / CQ + RS * u, row = wr0 + r, pos = p.group.div(row);
+    const T* src = row < nrows ? it.q + pos * p.qs.s +
+                                     (row - pos * p.group.d) * p.qs.h
+                               : nullptr;
+    if (VEC || p.qvec) {
+      const bool ok = src != nullptr && col;
+      cp_async16(q_s + C::QT::at(r, c), ok ? src + c * E : it.q,
+                 ok ? 16 : 0);
+    } else {
+      st16(q_s, C::QT::at(r, c), load_chunk<T>(src, c * E, p.dh));
+    }
+  }
+  if (VEC || p.qvec) {
+    cp_async_arrive(bar);
   } else {
-    copy_rows<C::BK, C::CK>(v_s, tile, vg, p.vs.s, k0, p.sk, p.dh, tid, NT);
+    fence_proxy_async();
+    mbar_arrive(bar);
   }
 }
 
-// f32, once a stage's copies have landed (every thread's): K-lo from
-// K, and V^T-hi / V^T-lo from the raw V in the V^T-lo buffer. V^T's
-// chunk 2 g8 + e holds keys 8 g8 + 2 i + e (i = 0..3): the TF32
-// A-fragment's key order (see the note above).
+// Pass u of the aligned path's copies of one K/V tile (keys k0 .. k0 +
+// BK - 1) into a ring stage, by 16-byte cp.async: passes 0 .. KP - 1 copy
+// K, KP .. 2 KP - 1 V, each thread chunk tid % CK of keys tid / CK + RS u;
+// keys past Sk and chunks past dh are zero-filled. K lands raw as KT
+// (f32: the TF32 hi, since wgmma reads an f32 in shared memory as TF32 by
+// keeping its top 19 bits); bf16 V raw as KT (an MN-major operand); f32 V
+// raw as KT into the K-lo buffer, for `convert_part`.
+template <class C, typename T>
+__device__ __forceinline__ void copy_pass(const Params& p, char* stage,
+                                          const T* kg, const T* vg, int k0,
+                                          int tid, int u) {
+  using KT = typename C::KT;
+  const bool v = u >= C::KP;
+  const int r = tid / C::CK + C::RS * (v ? u - C::KP : u);
+  const int c = tid % C::CK, key = k0 + r;
+  const bool ok = key < p.sk && c * C::E < p.dh;
+  const T* src = v ? vg : kg;
+  const long long stride = v ? p.vs.s : p.ks.s;
+  cp_async16(stage + (v ? KT::BYTES : 0) + KT::at(r, c),
+             ok ? src + key * stride + c * C::E : src, ok ? 16 : 0);
+}
+
+// f32, once a stage's copies have landed: warpgroup w's keys (w * PK ..)
+// of V^T-hi / V^T-lo from the raw V staged in the K-lo buffer, then of
+// K-lo from K over the raw chunks just read. A task is (8-key group g8,
+// 4 head dims dl, e): keys 8 g8 + 2 i + e (i = 0..3) of V^T's chunk
+// 2 g8 + e, the TF32 A-fragment's key order (see the note above). A
+// thread overwrites only raw chunks it has read itself, so no barrier.
+// A task runs in STEPS steps: the loads of its four raw V chunks, V^T's
+// four columns, K-lo's four rows.
 template <class C>
-__device__ __forceinline__ void convert_tile(char* stage, int tid) {
+struct Split {
   using KT = typename C::KT;
   using VT = typename C::VT;
-  constexpr int CK = C::CK, NDL = C::DH / 4;
-  constexpr int VTASKS = (C::BK / 8) * NDL;
-  constexpr int VPL = (VTASKS + C::THREADS - 1) / C::THREADS;
-#pragma unroll 4
-  for (int task = tid; task < C::BK * CK; task += C::THREADS) {
-    const int off = KT::at(task / CK, task % CK);
-    st16(stage + KT::BYTES, off, lo4(ld16(stage, off)));
+  static constexpr int NDL = C::DH / 4, PG = C::PK / 8;
+  static constexpr int TASKS = 2 * PG * NDL, STEPS = 9;
+  char* stage;
+  int e, g8, dl;
+  uint4 r[4];
+  __device__ __forceinline__ Split(char* st, int w, int task)
+      : stage(st),
+        e(task & 1),
+        g8(w * PG + (task >> 1) / NDL),
+        dl((task >> 1) % NDL) {}
+  __device__ __forceinline__ void step(int k) {
+    char* klo = stage + KT::BYTES;
+    if (k == 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        r[i] = ld16(klo, KT::at(8 * g8 + 2 * i + e, dl));
+    } else if (k <= 4) {
+      const int j = k - 1;
+      const uint4 col = make_uint4(word(r[0], j), word(r[1], j),
+                                   word(r[2], j), word(r[3], j));
+      const int off = VT::at(4 * dl + j, 2 * g8 + e);
+      char* vt = stage + 2 * KT::BYTES;
+      st16(vt, off, hi4(col));
+      st16(vt + VT::BYTES, off, lo4(col));
+    } else {
+      const int off = KT::at(8 * g8 + 2 * (k - 5) + e, dl);
+      st16(klo, off, lo4(ld16(stage, off)));
+    }
   }
-  char* vt = stage + 2 * KT::BYTES;
-  char* raw = vt + VT::BYTES;
-  uint4 r[VPL][2][4];
+};
+
+template <class C>
+__device__ __forceinline__ void convert_part(char* stage, int w, int t) {
+  for (int task = t; task < Split<C>::TASKS; task += WG) {
+    Split<C> sp(stage, w, task);
 #pragma unroll
-  for (int u = 0; u < VPL; ++u) {
-    const int task = tid + u * C::THREADS, g8 = task / NDL, dl = task % NDL;
-    if (task < VTASKS)
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          r[u][e][i] = ld16(raw, ((8 * g8 + 2 * i + e) * CK + dl) * 16);
-  }
-  __syncthreads();  // every raw row is read before it is overwritten
-#pragma unroll
-  for (int u = 0; u < VPL; ++u) {
-    const int task = tid + u * C::THREADS, g8 = task / NDL, dl = task % NDL;
-    if (task < VTASKS)
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const uint4 col =
-              make_uint4(word(r[u][e][0], j), word(r[u][e][1], j),
-                         word(r[u][e][2], j), word(r[u][e][3], j));
-          const int off = VT::at(4 * dl + j, 2 * g8 + e);
-          st16(vt, off, hi4(col));
-          st16(raw, off, lo4(col));
-        }
+    for (int k = 0; k < Split<C>::STEPS; ++k) sp.step(k);
   }
 }
 
 // The unaligned path: the same stage contents through registers, element
-// by element.
+// by element (f32 already split: no `convert_part`).
 template <class C, typename T>
 __device__ __forceinline__ void load_tile(const Params& p, char* stage,
                                           const T* kg, const T* vg, int k0,
@@ -591,333 +813,572 @@ __device__ __forceinline__ void load_tile(const Params& p, char* stage,
 
 // ------------------------------------------------------------- kernel
 
-template <class C, typename T>
-__global__ void __launch_bounds__(C::THREADS, 1)
+// VEC: q, k and v rows are all 16-byte aligned and whole, so the loops
+// carry no element-by-element staging (its registers cost the aligned
+// path spills and the wgmma descriptors their uniform registers)
+template <class C, typename T, bool VEC>
+__global__ void __launch_bounds__(C::THREADS, C::MINB)
     flash_fwd_kernel(const Params p) {
   using QT = typename C::QT;
   using KT = typename C::KT;
   using VT = typename C::VT;
-  constexpr int S = C::STAGES, E = C::E, CQ = C::CK, NS = C::DH / 64;
+  constexpr int S = C::STAGES, E = C::E, NS = C::NS;
   extern __shared__ __align__(128) char smem[];
-  char* ring = smem + C::Q_BYTES;
-
-  const int n = blockIdx.x / p.nq;
-  const int q0 = (p.nq - 1 - blockIdx.x % p.nq) * C::BQ;
-  const int b = n / p.heads, h = n % p.heads, kvh = h / p.group;
-  const T* qg = static_cast<const T*>(p.q) + b * p.qs.b + h * p.qs.h;
-  const T* kg = static_cast<const T*>(p.k) + b * p.ks.b + kvh * p.ks.h;
-  const T* vg = static_cast<const T*>(p.v) + b * p.vs.b + kvh * p.vs.h;
-  int nk = (p.sk + C::BK - 1) / C::BK;
-  if (p.causal) nk = min(nk, (min(q0 + C::BQ, p.sq) - 1) / C::BK + 1);
+  // mbarriers: full[S] (a stage's copies landed), empty[S] (both
+  // warpgroups done with it), ready[S] (fenced for wgmma; f32: split),
+  // qfull[NWG][QBUF]
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + S;
+  uint64_t* ready = empty + S;
+  uint64_t* qfull = full + 3 * S;
+  char* ring = smem + C::OFF_RING;
 
   const int tid = threadIdx.x;
   // the warpgroup index, warp-uniform by construction (wgmma is
-  // .sync.aligned); warpgroup wg owns query rows wq0 .. wq0 + 63
+  // .sync.aligned); warpgroup wg owns rows 64 wg .. 64 wg + 63 of an item
   const int wg = __shfl_sync(0xffffffffu, tid / WG, 0);
   const int t = tid % WG, wi = t / 32, lane = t % 32;
   const int g = lane / 4, tq = lane % 4;
-  const int wq0 = q0 + 64 * wg;
-  char* q_s = smem + wg * C::QCOPIES * QT::BYTES;
-  auto stage = [&](int it) { return ring + (it % S) * C::STAGE_BYTES; };
-  // tile `it` into its stage: cp.async (aligned rows), else through
-  // registers; one commit group per call either way
-  auto fetch = [&](int it) {
-    if (it < nk) {
-      if (p.kvvec)
-        copy_tile<C, T>(p, stage(it), kg, vg, it * C::BK, tid);
-      else
-        load_tile<C, T>(p, stage(it), kg, vg, it * C::BK, tid);
+  if (tid == 0) {
+    for (int i = 0; i < S; ++i) {
+      mbar_init(&full[i], C::THREADS);
+      mbar_init(&empty[i], C::THREADS / 32);  // one arrival a warp
+      mbar_init(&ready[i], C::THREADS / 32);
     }
-    cp_async_commit();
+    for (int i = 0; i < C::NWG * C::QBUF; ++i) mbar_init(&qfull[i], WG);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // this block's items, `item_index`
+  const int x0 = blockIdx.x, grid = p.grid.d;
+  const int mine = block_items(x0, p.grid, p.items, p.paired);
+  auto item = [&](int j) {
+    return item_at<C, T>(p, item_index(x0, j, grid, p.paired));
   };
-  // once tile `it` has landed in every thread's view: f32 splits it
-  // (K-lo, V^T), and the stage is made visible to wgmma (after the next
-  // __syncthreads)
-  auto prepare = [&](int it) {
-    if constexpr (C::F32) {
-      if (it < nk && p.kvvec) convert_tile<C>(stage(it), tid);
-    }
-    fence_proxy_async();
+  auto stage = [&](int x) { return ring + (x % S) * C::STAGE_BYTES; };
+  auto q_region = [&](int buf) {
+    return smem + C::BAR_BYTES + buf * C::Q_BYTES + wg * C::WQ_BYTES;
   };
 
-  // ---- prologue: Q raw into shared memory (f32: the TF32 hi), tiles
-  // 0 .. S - 1 in flight
-  if (p.qvec) {
-    auto tile = [](int r, int c) { return QT::at(r, c); };
-    copy_rows<64, CQ>(q_s, tile, qg, p.qs.s, wq0, p.sq, p.dh, t, WG);
-  } else {
-    for (int task = t; task < 64 * CQ; task += WG) {
-      const int r = task / CQ, c = task % CQ, row = wq0 + r;
-      st16(q_s, QT::at(r, c),
-           load_chunk<T>(row < p.sq ? qg + row * p.qs.s : nullptr, c * E,
-                         p.dh));
+  // The loader: every thread's share of the next tile of the block's
+  // stream (tile lt of item lj), into stage issued % S once both
+  // warpgroups are done with the tile that held it, in 2 KP passes (u):
+  // the first waits for the stage, the last arrives on its full mbarrier
+  // and moves the loader on (the staged path loads the whole tile then).
+  int issued = 0, lj = 0, lt = 0;
+  Item<T> li = item(0);
+  auto load_pass = [&](int u) {
+    if (lj >= mine) return;
+    const int st = issued % S;
+    if (u == 0 && issued >= S) mbar_wait(&empty[st], ((issued / S) + 1) & 1);
+    char* dst = ring + st * C::STAGE_BYTES;
+    if (VEC || p.kvvec) {
+      copy_pass<C, T>(p, dst, li.k, li.v, lt * C::BK, tid, u);
+      if (u < 2 * C::KP - 1) return;
+      cp_async_arrive(&full[st]);
+    } else {
+      if (u < 2 * C::KP - 1) return;
+      load_tile<C, T>(p, dst, li.k, li.v, lt * C::BK, tid);
+      fence_proxy_async();
+      mbar_arrive(&full[st]);
     }
+    ++issued;
+    if (++lt == li.nk) {
+      lt = 0;
+      if (++lj < mine) li = item(lj);
+    }
+  };
+  auto load_next = [&]() {
+#pragma unroll
+    for (int u = 0; u < 2 * C::KP; ++u) load_pass(u);
+  };
+  // Once tile x has landed: f32 splits this warpgroup's keys of it; the
+  // proxy fence orders the copies (and splits) before wgmma reads them,
+  // and the stage is ready when every warp has fenced. The fence waits
+  // for this thread's copies in flight, so it runs where the newest have
+  // landed: before the next tile's copies are issued.
+  auto prepare = [&](int x) {
+    mbar_wait(&full[x % S], (x / S) & 1);
+    if constexpr (C::F32) {
+      if (VEC || p.kvvec) convert_part<C>(stage(x), wg, t);
+    }
+    fence_proxy_async();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&ready[x % S]);
+  };
+
+  // ---- prologue: the first item's Q, tiles 0 .. S - LAG - 1 in flight
+  load_q<C, T, VEC>(p, item(0), q_region(0), wg, t, &qfull[wg * C::QBUF]);
+  for (int x = 0; x + C::LAG < S; ++x) load_next();
+  if constexpr (!C::F32 || S >= 3) {
+    for (int x = 0; x < C::PREP; ++x) prepare(x);
   }
-  cp_async_commit();
-  for (int it = 0; it < S; ++it) fetch(it);
-  cp_async_wait<S - 1>();  // Q and tile 0
-  __syncthreads();
+
   // f32 at dh <= 128: Q-hi as TF32 A fragments in registers, (r, k) =
   // (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4) of each 8-column
   // step, and Q-lo in place of Q in shared memory; at dh 256 Q stays as
   // the hi operand and Q-lo is a second copy
   constexpr int QHI_STEPS = (C::F32 && !C::QLO_SMEM) ? C::DH / 8 : 1;
   uint32_t qhi[QHI_STEPS][4];
-  if constexpr (C::F32) {
-    if constexpr (!C::QLO_SMEM) {
-      const int r0w = 16 * wi + g;
-#pragma unroll
-      for (int ks = 0; ks < QHI_STEPS; ++ks)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int col = 8 * ks + tq + 4 * (i >> 1);
-          qhi[ks][i] = tf32_bits(*reinterpret_cast<const float*>(
-              q_s + QT::at(r0w + 8 * (i & 1), col / 4) + 4 * (col % 4)));
-        }
-      warpgroup_sync(1 + wg);  // every fragment is read
-    }
-    char* lo_s = C::QLO_SMEM ? q_s + QT::BYTES : q_s;
-    for (int task = t; task < 64 * CQ; task += WG) {
-      const int off = QT::at(task / CQ, task % CQ);
-      st16(lo_s, off, lo4(ld16(q_s, off)));
-    }
-  }
-  prepare(0);
-  __syncthreads();
-
-  const uint32_t qb = smem_addr(q_s);
-  const int r0 = wq0 + 16 * wi + g;  // this thread's rows r0, r0 + 8
-  float o[NS][32];
-#pragma unroll
-  for (int sl = 0; sl < NS; ++sl)
-#pragma unroll
-    for (int i = 0; i < 32; ++i) o[sl][i] = 0.0f;
   // the softmax in base 2: exp(x s) = exp2(x s log2(e)), so m is kept in
   // the scaled base-2 domain
   const float scale2 = p.scale * 1.4426950408889634f;
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f};
+  int s = 0;  // the stream's tile being computed
 
-  for (int it = 0; it < nk; ++it) {
-    const int k0 = it * C::BK;
-    // Every warpgroup computes every tile of the block: one wholly above
-    // its diagonal (or a warpgroup past Sq) is all masked and adds p = 0
-    // with corr = 1, and branching around the asynchronous products would
-    // make the compiler wait for them at the join.
-    // f32: the hi x hi products chain into sc, the small hi x lo ones into
-    // scc (see "Accumulation" above)
-    constexpr int NCC = C::SPLIT == 2 ? C::BK / 2 : 1;
-    float sc[C::BK / 2], scc[NCC];
-    uint32_t vb;
-    {
-      uint32_t qbase = qb;
-      asm volatile("" : "+r"(qbase));  // descriptors are built per tile
-      const uint32_t kb = smem_addr(stage(it));
-      vb = kb + C::SPLIT * KT::BYTES;
-
-      // S = Q K^T, asynchronous
+  for (int j = 0; j < mine; ++j) {
+    const int buf = C::QBUF == 2 ? (j & 1) : 0;
+    char* q_s = q_region(buf);
+    // the item's state, set while its Q lands
+    const int nk = item(j).nk;
+    const int wr0 = item(j).r0 + 64 * wg;   // the warpgroup's first row
+    const int wpos0 = p.group.div(wr0);     // ... and its position
+    const int r0 = wr0 + 16 * wi + g;       // this thread's rows r0, r0 + 8
+    // in an edge tile, row r masks its keys from lim[r] on: past Sk, or
+    // (causal) past the row's position; this thread's column 8 jj + e is
+    // key k0 + 8 jj + 2 tq + e
+    int lim[2];
 #pragma unroll
-      for (int i = 0; i < C::BK / 2; ++i) sc[i] = 0.0f;
-#pragma unroll
-      for (int i = 0; i < NCC; ++i) scc[i] = 0.0f;
-      fence_regs<C::BK / 2>(sc);
-      fence_regs<NCC>(scc);
-      wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < C::DH / C::KE; ++ks) {
-        const uint64_t dq = QT::desc(qbase, ks), dk = KT::desc(kb, ks);
-        if constexpr (C::QLO_SMEM) {  // Qhi Khi + (Qhi Klo + Qlo Khi)
-          wgmma_tf32_ss<C::BK>(sc, dq, dk, 1);
-          wgmma_tf32_ss<C::BK>(scc, dq, KT::desc(kb + KT::BYTES, ks), 1);
-          wgmma_tf32_ss<C::BK>(scc, QT::desc(qbase + QT::BYTES, ks), dk, 1);
-        } else if constexpr (C::F32) {  // dq: Q-lo
-          wgmma_tf32_rs<C::BK>(sc, qhi[ks], dk, 1);
-          wgmma_tf32_rs<C::BK>(scc, qhi[ks], KT::desc(kb + KT::BYTES, ks), 1);
-          wgmma_tf32_ss<C::BK>(scc, dq, dk, 1);
-        } else {
-          wgmma_bf16_ss<C::BK>(sc, dq, dk, 1);
-        }
-      }
-      wgmma_commit();
-    }
-    // while Q K^T runs: tile it + 1 has landed (every thread's copies),
-    // f32 splits it into its stage (it is not the one being read)
-    if constexpr (S > 1) {
-      cp_async_wait<S - 2>();
-      __syncthreads();
-      prepare(it + 1);
-    }
-    {
-      wgmma_wait_all();
-      fence_regs<C::BK / 2>(sc);
-      fence_regs<NCC>(scc);
-      if constexpr (C::SPLIT == 2) {
-#pragma unroll
-        for (int i = 0; i < C::BK / 2; ++i) sc[i] += scc[i];
-      }
-
-      // online softmax of rows r0 (r = 0) and r0 + 8 (r = 1) over the tile
-      const bool edge =
-          k0 + C::BK > p.sk || (p.causal && k0 + C::BK - 1 > wq0);
-      float corr[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int qi = r0 + 8 * r;
-        float mx = NEG_INF;
-#pragma unroll
-        for (int j = 0; j < C::BK / 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            float x = sc[4 * j + 2 * r + e] * scale2;
-            if (edge) {
-              const int kj = k0 + 8 * j + 2 * tq + e;
-              if (kj >= p.sk || (p.causal && kj > qi)) x = NEG_INF;
-            }
-            sc[4 * j + 2 * r + e] = x;
-            mx = fmaxf(mx, x);
-          }
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float m_new = fmaxf(m[r], mx);
-        corr[r] = exp2f(m[r] - m_new);
-        m[r] = m_new;
-        float sum = 0.0f;
-#pragma unroll
-        for (int j = 0; j < C::BK / 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float pe = exp2f(sc[4 * j + 2 * r + e] - m_new);
-            sc[4 * j + 2 * r + e] = pe;
-            sum += pe;
-          }
-        l[r] = l[r] * corr[r] + sum;  // this thread's columns only
-      }
-      if (corr[0] != 1.0f || corr[1] != 1.0f) {  // a row's max moved
-#pragma unroll
-        for (int sl = 0; sl < NS; ++sl)
-#pragma unroll
-          for (int i = 0; i < 32; ++i) o[sl][i] *= corr[(i >> 1) & 1];
-      }
-
-      // P as A fragments, split hi + lo
-      constexpr int PSTEPS = C::BK / C::KE;
-      uint32_t ph[PSTEPS][4], pl[PSTEPS][4];
-#pragma unroll
-      for (int ks = 0; ks < PSTEPS; ++ks) {
-        if constexpr (C::F32) {
-          // k = t <- key 2t, k = t + 4 <- key 2t + 1 (V^T is permuted)
-          const float v4[4] = {sc[4 * ks], sc[4 * ks + 2], sc[4 * ks + 1],
-                               sc[4 * ks + 3]};
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            ph[ks][i] = tf32_bits(v4[i]);
-            pl[ks][i] = lo_bits(v4[i]);
-          }
-        } else {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            // (g, 2t..), (g + 8, 2t..), (g, 2t + 8..), (g + 8, 2t + 8..)
-            const int base = 4 * (2 * ks + (i >> 1)) + 2 * (i & 1);
-            const float a = sc[base], c = sc[base + 1];
-            const __nv_bfloat162 hi = __floats2bfloat162_rn(a, c);
-            const __nv_bfloat162 lo = __floats2bfloat162_rn(
-                a - __low2float(hi), c - __high2float(hi));
-            ph[ks][i] = *reinterpret_cast<const uint32_t*>(&hi);
-            pl[ks][i] = *reinterpret_cast<const uint32_t*>(&lo);
-          }
-        }
-      }
-
-      // O += P V, 64 head dims at a time: the tile's products chain into a
-      // fresh accumulator acc, which O takes with a rounded add
-#pragma unroll
-      for (int sl = 0; sl < NS; ++sl) {
-        float acc[32];
-#pragma unroll
-        for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
-        fence_regs<32>(acc);
-        wgmma_fence();
-#pragma unroll
-        for (int ks = 0; ks < PSTEPS; ++ks) {
-          if constexpr (C::F32) {
-            const uint64_t dv = VT::desc(vb, ks, 64 * sl);
-            wgmma_tf32_rs<64>(acc, ph[ks], dv, 1);
-            wgmma_tf32_rs<64>(acc, pl[ks], dv, 1);
-            wgmma_tf32_rs<64>(acc, ph[ks],
-                              VT::desc(vb + VT::BYTES, ks, 64 * sl), 1);
-          } else {
-            const uint64_t dvn = KT::desc_mn(vb, ks, 8 * sl);
-            wgmma_bf16_rs_mn<64>(acc, ph[ks], dvn, 1);
-            wgmma_bf16_rs_mn<64>(acc, pl[ks], dvn, 1);
-          }
-        }
-        wgmma_commit();
-        wgmma_wait_all();
-        fence_regs<32>(acc);
-#pragma unroll
-        for (int i = 0; i < 32; ++i) o[sl][i] += acc[i];
-      }
-    }
-    // stage(it) is read by everyone and tile it + 1 is prepared: tile
-    // it + S may take the stage (one stage: load and prepare it now)
-    __syncthreads();
-    fetch(it + S);
-    if constexpr (S == 1) {
-      cp_async_wait<0>();
-      __syncthreads();
-      prepare(it + 1);
-      __syncthreads();
-    }
-  }
-
-  // out = O / max(l, 1e-30): l summed over the row's quad
-  T* og = static_cast<T*>(p.o) + b * p.os.b + h * p.os.h;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qi = r0 + 8 * r;
-    if (qi >= p.sq) continue;
-    const float den = fmaxf(l[r], 1e-30f);
+    for (int r = 0; r < 2; ++r)
+      lim[r] = (p.causal ? min(p.sk, p.group.div(r0 + 8 * r) + 1) : p.sk) -
+               2 * tq;
+    const uint32_t qb = smem_addr(q_s);
+    float o[NS][32];
 #pragma unroll
     for (int sl = 0; sl < NS; ++sl)
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int i = 0; i < 32; ++i) o[sl][i] = 0.0f;
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f};
+
+    mbar_wait(&qfull[wg * C::QBUF + buf], (j / C::QBUF) & 1);
+    fence_proxy_async();  // Q, copied by cp.async, is read by wgmma
+    if constexpr (C::F32) {
+      if constexpr (!C::QLO_SMEM) {
+        const int r0w = 16 * wi + g;
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int d = 64 * sl + 8 * j + 2 * tq + e;
-          if (d < p.dh)
-            og[qi * p.os.s + d] = from_f<T>(o[sl][4 * j + 2 * r + e] / den);
+        for (int ks = 0; ks < QHI_STEPS; ++ks)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int col = 8 * ks + tq + 4 * (i >> 1);
+            qhi[ks][i] = tf32_bits(*reinterpret_cast<const float*>(
+                q_s + QT::at(r0w + 8 * (i & 1), col / 4) + 4 * (col % 4)));
+          }
+        warpgroup_sync(1 + wg);  // every fragment is read
+      }
+      char* lo_s = C::QLO_SMEM ? q_s + QT::BYTES : q_s;
+      for (int task = t; task < 64 * C::CK; task += WG) {
+        const int off = QT::at(task / C::CK, task % C::CK);
+        st16(lo_s, off, lo4(ld16(q_s, off)));
+      }
+      fence_proxy_async();
+      warpgroup_sync(1 + wg);
+      // f32 with 2 stages prepares the block's first tile once its first
+      // Q is split (Q landed first)
+      if constexpr (S == 2) {
+        if (j == 0) prepare(0);
+      }
+    }
+
+    // two Q buffers: the next item's Q into the other (its last use, the
+    // item before's O, has been stored), once this item's first tile is
+    // prepared (the fence would wait for it)
+    auto next_q = [&]() {
+      if constexpr (C::QBUF == 2) {
+        if (j + 1 < mine)
+          load_q<C, T, VEC>(p, item(j + 1), q_region(buf ^ 1), wg, t,
+                       &qfull[wg * 2 + (buf ^ 1)]);
+      }
+    };
+    for (int it = 0; it < nk; ++it, ++s) {
+      const int k0 = it * C::BK;
+      // bf16 (and f32 with 3+ stages) prepares tile s + PREP before
+      // copying the next one
+      if constexpr (!C::F32 || S >= 3) {
+        if (s + C::PREP < issued) prepare(s + C::PREP);
+        if (it == 0) next_q();
+      }
+      if constexpr (!(C::SPLIT_COPY && VEC)) load_next();  // s + S - LAG
+      if constexpr (S == 1) prepare(s);
+      mbar_wait(&ready[s % S], (s / S) & 1);
+      // Every warpgroup computes every tile of the item: one wholly above
+      // its diagonal (or a warpgroup past Sq * G) is all masked and adds
+      // p = 0 with corr = 1, and branching around the asynchronous
+      // products would make the compiler wait for them at the join.
+      // f32: the hi x hi products chain into sc, the small hi x lo ones
+      // into scc (see "Accumulation" above)
+      constexpr int NCC = C::SPLIT == 2 ? C::BK / 2 : 1;
+      float sc[C::BK / 2], scc[NCC];
+      uint32_t vb;
+      {
+        uint32_t qbase = qb;
+        asm volatile("" : "+r"(qbase));  // descriptors are built per tile
+        const uint32_t kb = smem_addr(stage(s));
+        vb = kb + C::SPLIT * KT::BYTES;
+
+        // S = Q K^T, asynchronous
+#pragma unroll
+        for (int i = 0; i < C::BK / 2; ++i) sc[i] = 0.0f;
+#pragma unroll
+        for (int i = 0; i < NCC; ++i) scc[i] = 0.0f;
+        fence_regs<C::BK / 2>(sc);
+        fence_regs<NCC>(scc);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < C::DH / C::KE; ++ks) {
+          const uint64_t dq = QT::desc(qbase, ks), dk = KT::desc(kb, ks);
+          if constexpr (C::QLO_SMEM) {  // Qhi Khi + (Qhi Klo + Qlo Khi)
+            wgmma_tf32_ss<C::BK>(sc, dq, dk, 1);
+            wgmma_tf32_ss<C::BK>(scc, dq, KT::desc(kb + KT::BYTES, ks), 1);
+            wgmma_tf32_ss<C::BK>(scc, QT::desc(qbase + QT::BYTES, ks), dk,
+                                 1);
+          } else if constexpr (C::F32) {  // dq: Q-lo
+            wgmma_tf32_rs<C::BK>(sc, qhi[ks], dk, 1);
+            wgmma_tf32_rs<C::BK>(scc, qhi[ks], KT::desc(kb + KT::BYTES, ks),
+                                 1);
+            wgmma_tf32_ss<C::BK>(scc, dq, dk, 1);
+          } else {
+            wgmma_bf16_ss<C::BK>(sc, dq, dk, 1);
+          }
+          if constexpr (C::SPLIT_COPY && VEC) {  // tile s + 1, between them
+            constexpr int KS = C::DH / C::KE, NP = 2 * C::KP;
+#pragma unroll
+            for (int u = 0; u < NP; ++u)
+              if (u * KS / NP == ks) load_pass(u);
+          }
         }
+        wgmma_commit();
+      }
+      if constexpr (C::F32 && S <= 2) {
+        if (it == 0) next_q();
+      }
+      {
+        wgmma_wait_all();
+        fence_regs<C::BK / 2>(sc);
+        fence_regs<NCC>(scc);
+        if constexpr (C::SPLIT == 2) {
+#pragma unroll
+          for (int i = 0; i < C::BK / 2; ++i) sc[i] += scc[i];
+        }
+
+        // online softmax of rows r0 (r = 0) and r0 + 8 (r = 1) over the
+        // tile
+        const bool edge =
+            k0 + C::BK > p.sk || (p.causal && k0 + C::BK - 1 > wpos0);
+        float corr[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float mx = NEG_INF;
+#pragma unroll
+          for (int jj = 0; jj < C::BK / 8; ++jj)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float x = sc[4 * jj + 2 * r + e] * scale2;
+              if (edge && 8 * jj + e >= lim[r] - k0) x = NEG_INF;
+              sc[4 * jj + 2 * r + e] = x;
+              mx = fmaxf(mx, x);
+            }
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          const float m_new = fmaxf(m[r], mx);
+          corr[r] = exp2f(m[r] - m_new);
+          m[r] = m_new;
+          float sum = 0.0f;
+#pragma unroll
+          for (int jj = 0; jj < C::BK / 8; ++jj)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float pe = exp2f(sc[4 * jj + 2 * r + e] - m_new);
+              sc[4 * jj + 2 * r + e] = pe;
+              sum += pe;
+            }
+          l[r] = l[r] * corr[r] + sum;  // this thread's columns only
+        }
+        if (corr[0] != 1.0f || corr[1] != 1.0f) {  // a row's max moved
+#pragma unroll
+          for (int sl = 0; sl < NS; ++sl)
+#pragma unroll
+            for (int i = 0; i < 32; ++i) o[sl][i] *= corr[(i >> 1) & 1];
+        }
+
+        // P as A fragments, split hi + lo
+        constexpr int PSTEPS = C::BK / C::KE;
+        uint32_t ph[PSTEPS][4], pl[PSTEPS][4];
+#pragma unroll
+        for (int ks = 0; ks < PSTEPS; ++ks) {
+          if constexpr (C::F32) {
+            // k = t <- key 2t, k = t + 4 <- key 2t + 1 (V^T is permuted)
+            const float v4[4] = {sc[4 * ks], sc[4 * ks + 2], sc[4 * ks + 1],
+                                 sc[4 * ks + 3]};
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              ph[ks][i] = tf32_bits(v4[i]);
+              pl[ks][i] = lo_bits(v4[i]);
+            }
+          } else {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              // (g, 2t..), (g + 8, 2t..), (g, 2t + 8..), (g + 8, 2t + 8..)
+              const int base = 4 * (2 * ks + (i >> 1)) + 2 * (i & 1);
+              const float a = sc[base], c = sc[base + 1];
+              const __nv_bfloat162 hi = __floats2bfloat162_rn(a, c);
+              const __nv_bfloat162 lo = __floats2bfloat162_rn(
+                  a - __low2float(hi), c - __high2float(hi));
+              ph[ks][i] = *reinterpret_cast<const uint32_t*>(&hi);
+              pl[ks][i] = *reinterpret_cast<const uint32_t*>(&lo);
+            }
+          }
+        }
+
+        // f32 with 2 stages prepares tile s + 1 (not the one being read)
+        // under the first slice's products. The aligned path splits this
+        // warpgroup's keys of it between the products, since the issue of
+        // a product blocks the warp about as long as the product runs: the
+        // wait for its copies after the first k-step, then a step of this
+        // thread's task after each k-step (actions a = 0 .. STEPS after
+        // k-step a * PSTEPS / (STEPS + 1)), the fence and the arrival on
+        // its ready mbarrier once the slice is issued. The staged path
+        // (split as it was loaded) waits and fences after the slice's
+        // issue, keeping thread-dependent branches out of the products.
+        constexpr bool PV_SPLIT = C::F32 && S == 2 && VEC;
+        constexpr int NA = Split<C>::STEPS + 1;
+        const bool nxt = C::F32 && S == 2 && s + 1 < issued;
+        const bool conv = PV_SPLIT && nxt && t < Split<C>::TASKS;
+        Split<C> sp(stage(s + 1), wg, t);
+
+        // O += P V, PVG slices of 64 head dims at a time: the tile's
+        // products chain into fresh accumulators acc, which O takes with
+        // a rounded add
+#pragma unroll
+        for (int sg = 0; sg < NS; sg += C::PVG) {
+          float acc[C::PVG][32];
+#pragma unroll
+          for (int u = 0; u < C::PVG; ++u) {
+#pragma unroll
+            for (int i = 0; i < 32; ++i) acc[u][i] = 0.0f;
+            fence_regs<32>(acc[u]);
+          }
+          wgmma_fence();
+#pragma unroll
+          for (int u = 0; u < C::PVG; ++u) {
+            const int sl = sg + u;
+#pragma unroll
+            for (int ks = 0; ks < PSTEPS; ++ks) {
+              if constexpr (C::F32) {
+                const uint64_t dv = VT::desc(vb, ks, 64 * sl);
+                wgmma_tf32_rs<64>(acc[u], ph[ks], dv, 1);
+                wgmma_tf32_rs<64>(acc[u], pl[ks], dv, 1);
+                wgmma_tf32_rs<64>(acc[u], ph[ks],
+                                  VT::desc(vb + VT::BYTES, ks, 64 * sl), 1);
+              } else {
+                const uint64_t dvn = KT::desc_mn(vb, ks, 8 * sl);
+                wgmma_bf16_rs_mn<64>(acc[u], ph[ks], dvn, 1);
+                wgmma_bf16_rs_mn<64>(acc[u], pl[ks], dvn, 1);
+              }
+              if constexpr (PV_SPLIT) {
+                if (sg == 0 && u == 0) {
+#pragma unroll
+                  for (int a = 0; a < NA; ++a) {
+                    if (a * PSTEPS / NA != ks) continue;
+                    if (a == 0 && nxt)
+                      mbar_wait(&full[(s + 1) % S], ((s + 1) / S) & 1);
+                    if (a > 0 && conv) sp.step(a - 1);
+                    asm volatile("" ::: "memory");  // keep the step here
+                  }
+                }
+              }
+            }
+          }
+          wgmma_commit();
+          if constexpr (PV_SPLIT) {
+            if (sg == 0 && nxt) {  // tile s + 1 is ready for wgmma
+              fence_proxy_async();
+              __syncwarp();
+              if (lane == 0) mbar_arrive(&ready[(s + 1) % S]);
+            }
+          } else if constexpr (C::F32 && S == 2) {
+            if (sg == 0 && nxt) prepare(s + 1);
+          }
+          wgmma_wait_all();
+#pragma unroll
+          for (int u = 0; u < C::PVG; ++u) {
+            fence_regs<32>(acc[u]);
+#pragma unroll
+            for (int i = 0; i < 32; ++i) o[sg + u][i] += acc[u][i];
+          }
+        }
+      }
+      // this warp's products on the stage have retired
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s % S]);
+    }
+
+    // ---- epilogue: out = O / max(l, 1e-30), l summed over the row's
+    // quad, through the warpgroup's Q buffer (its products have retired):
+    // rows of CK chunks, chunk c of row r at c ^ (r % 8), then 16-byte
+    // stores along each row
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+    constexpr int RB = C::CK * 16;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float den = fmaxf(l[r], 1e-30f);
+      const int row = 16 * wi + g + 8 * r;
+#pragma unroll
+      for (int sl = 0; sl < NS; ++sl)
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int byte = (64 * sl + 8 * jj + 2 * tq) * (int)sizeof(T);
+          char* dst = q_s + row * RB + (((byte >> 4) ^ (row & 7)) << 4) +
+                      (byte & 15);
+          const float a = o[sl][4 * jj + 2 * r] / den;
+          const float c = o[sl][4 * jj + 2 * r + 1] / den;
+          if constexpr (C::F32)
+            *reinterpret_cast<float2*>(dst) = make_float2(a, c);
+          else
+            *reinterpret_cast<__nv_bfloat162*>(dst) =
+                __floats2bfloat162_rn(a, c);
+        }
+    }
+    warpgroup_sync(1 + wg);
+    T* const og = item(j).o;
+    const int ce = t % C::CK;  // this thread's chunk of rows t / CK + RS u
+    constexpr int RS = WG / C::CK;
+#pragma unroll 4
+    for (int u = 0; u < 64 / RS; ++u) {
+      const int r = t / C::CK + RS * u, row = wr0 + r;
+      const int pos = p.group.div(row);
+      if (pos >= p.sq || ce * E >= p.dh) continue;
+      const uint4 val = ld16(q_s, r * RB + ((ce ^ (r & 7)) << 4));
+      T* dst = og + pos * p.os.s + (row - pos * p.group.d) * p.os.h + ce * E;
+      if (p.ovec) {
+        *reinterpret_cast<uint4*>(dst) = val;
+      } else {
+        union {
+          uint4 v;
+          Raw<T> e[E];
+        } w;
+        w.v = val;
+        Raw<T>* d = reinterpret_cast<Raw<T>*>(dst);
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          if (ce * E + e < p.dh) d[e] = w.e[e];
+      }
+    }
+    warpgroup_sync(1 + wg);  // the buffer is read before its next fill
+    if constexpr (C::QBUF == 1) {
+      if (j + 1 < mine)
+        load_q<C, T, VEC>(p, item(j + 1), q_region(0), wg, t, &qfull[wg]);
+    }
   }
+}
+
+// ---------------------------------------------------------------- plan
+
+// (dh, warpgroups, keys per stage, stages, Q buffers, blocks per SM): see
+// the note above; f(Cfg{}) for the configuration of (dtype, dh, Sk)
+template <typename T, typename F>
+int with_cfg(int dh, int sk, F&& f) {
+  if constexpr (std::is_same<T, float>::value) {
+    if (dh <= 64) {
+      if (sk <= 32) return f(Cfg<T, 64, 2, 32, 2, 2, 1>{});
+      return f(Cfg<T, 64, 2, 64, 2, 2, 1>{});
+    }
+    if (dh <= 128) return f(Cfg<T, 128, 2, 32, 2, 1, 1>{});
+    return f(Cfg<T, 256, 1, 16, 1, 1, 1>{});
+  } else {
+    if (dh <= 64) {
+      if (sk <= 32) return f(Cfg<T, 64, 2, 32, 4, 2, 2>{});
+      return f(Cfg<T, 64, 2, 64, 4, 2, 1>{});
+    }
+    if (dh <= 128) return f(Cfg<T, 128, 2, 64, 4, 2, 1>{});
+    return f(Cfg<T, 256, 2, 32, 3, 1, 1>{});
+  }
+}
+
+enum PlanField {
+  F_SMEM = 0,
+  F_ITEMS,
+  F_GRID,
+  F_BK,
+  F_STAGES,
+  F_ROWS,
+  F_BLOCKS_PER_SM,
+  F_GROUP,
+  F_QBUF,
+  F_DH,
+  F_WARPGROUPS,
+  F_PAIRED
+};
+
+// items of the launch: batch * KV * ceil(Sq * G / BQ)
+template <class C>
+long long plan_items(int batch, int sq, int heads, int kv_heads) {
+  const long long g = heads / kv_heads;
+  return (long long)batch * kv_heads * ((sq * g + C::BQ - 1) / C::BQ);
+}
+
+template <class C>
+long long plan_field(int batch, int sq, int heads, int kv_heads, int causal,
+                     int sms, int field) {
+  const long long items = plan_items<C>(batch, sq, heads, kv_heads);
+  const bool paired = causal && items > (long long)C::MINB * sms;
+  switch (field) {
+    case F_SMEM: return C::SMEM;
+    case F_ITEMS: return items;
+    case F_GRID: {
+      const long long resident = (long long)C::MINB * sms;
+      const long long units = paired ? (items + 1) / 2 : items;
+      return units < resident ? units : resident;
+    }
+    case F_PAIRED: return paired;
+    case F_BK: return C::BK;
+    case F_STAGES: return C::STAGES;
+    case F_ROWS: return C::BQ;
+    case F_BLOCKS_PER_SM: return C::MINB;
+    case F_GROUP: return heads / kv_heads;
+    case F_QBUF: return C::QBUF;
+    case F_DH: return C::DH;
+    case F_WARPGROUPS: return C::NWG;
+    default: return -1;
+  }
+}
+
+int num_sms(int device) {
+  static int cache[64] = {0};
+  if (device >= 0 && device < 64 && cache[device] > 0) return cache[device];
+  int n = 0;
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device) !=
+          cudaSuccess ||
+      n <= 0)
+    n = 1;
+  if (device >= 0 && device < 64) cache[device] = n;
+  return n;
 }
 
 template <class C, typename T>
-int launch(Params p, int n, cudaStream_t stream) {
+int launch(Params p, int batch, int heads, int device, cudaStream_t stream) {
+  const bool vec = p.qvec && p.kvvec;
+  auto kernel =
+      vec ? flash_fwd_kernel<C, T, true> : flash_fwd_kernel<C, T, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<C, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      C::SMEM);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return (int)err;
-  p.nq = (p.sq + C::BQ - 1) / C::BQ;
-  flash_fwd_kernel<C, T>
-      <<<(unsigned)((long long)n * p.nq), C::THREADS, C::SMEM, stream>>>(p);
+  const long long items = plan_items<C>(batch, p.sq, heads, p.kv.d);
+  if (items > INT_MAX || (long long)p.sq * p.group.d > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  p.nt = Div::of((int)((p.sq * (long long)p.group.d + C::BQ - 1) / C::BQ));
+  p.items = (int)items;
+  const int sms = num_sms(device);
+  p.paired = (int)plan_field<C>(batch, p.sq, heads, p.kv.d, p.causal, sms,
+                                F_PAIRED);
+  const int grid = (int)plan_field<C>(batch, p.sq, heads, p.kv.d, p.causal,
+                                      sms, F_GRID);
+  p.grid = Div::of(grid);
+  kernel<<<grid, C::THREADS, C::SMEM, stream>>>(p);
   return (int)cudaGetLastError();
-}
-
-template <typename T>
-int dispatch(const Params& p, int n, cudaStream_t stream) {
-  // (dh, consumer warpgroups, keys per stage, stages): see the note above
-  if constexpr (std::is_same<T, float>::value) {
-    if (p.dh <= 64) return launch<Cfg<T, 64, 2, 64, 2>, T>(p, n, stream);
-    if (p.dh <= 128) return launch<Cfg<T, 128, 2, 32, 2>, T>(p, n, stream);
-    return launch<Cfg<T, 256, 1, 16, 1>, T>(p, n, stream);
-  } else {
-    if (p.dh <= 64) return launch<Cfg<T, 64, 2, 64, 4>, T>(p, n, stream);
-    if (p.dh <= 128) return launch<Cfg<T, 128, 2, 64, 4>, T>(p, n, stream);
-    return launch<Cfg<T, 256, 2, 32, 3>, T>(p, n, stream);
-  }
 }
 
 // 16-byte loads are safe: base 16-byte aligned, and every stride that is
@@ -957,19 +1418,46 @@ extern "C" int flash_attention_fwd(
   p.ks = {k_sb, k_ss, k_sh};
   p.vs = {v_sb, v_ss, v_sh};
   p.os = {o_sb, o_ss, o_sh};
-  p.heads = heads;
-  p.group = heads / kv_heads;
+  p.group = Div::of(heads / kv_heads);
+  p.kv = Div::of(kv_heads);
   p.sq = sq;
   p.sk = sk;
   p.dh = dh;
-  p.nq = 0;
   p.causal = causal;
+  p.nt = p.grid = Div::of(1);
+  p.items = p.paired = 0;
   p.qvec = rows_aligned(q, q_sb, q_ss, q_sh, batch, sq, heads, dh, item);
   p.kvvec =
       rows_aligned(k, k_sb, k_ss, k_sh, batch, sk, kv_heads, dh, item) &&
       rows_aligned(v, v_sb, v_ss, v_sh, batch, sk, kv_heads, dh, item);
+  p.ovec = rows_aligned(o, o_sb, o_ss, o_sh, batch, sq, heads, dh, item);
   p.scale = scale;
-  const int n = batch * heads;
   cudaStream_t s = (cudaStream_t)stream;
-  return bf16 ? dispatch<__nv_bfloat16>(p, n, s) : dispatch<float>(p, n, s);
+  auto go = [&](auto c) {
+    using C = decltype(c);
+    using T = typename std::conditional<C::F32, float, __nv_bfloat16>::type;
+    return launch<C, T>(p, batch, heads, device, s);
+  };
+  return bf16 ? with_cfg<__nv_bfloat16>(dh, sk, go)
+              : with_cfg<float>(dh, sk, go);
+}
+
+// The launch plan of a call, field by field (0 shared-memory bytes per
+// block, 1 items, 2 grid on `sms` SMs, 3 keys per stage, 4 stages, 5 packed
+// rows per item, 6 resident blocks per SM, 7 G, 8 Q buffers, 9 the
+// configuration's head dim, 10 warpgroups, 11 whether blocks take pairs
+// of items; -1 for another field): the C
+// mirror of `kernels/flash_attention.py:flash_plan`. Launches nothing.
+extern "C" int flash_plan_field(int bf16, int batch, int sq, int sk,
+                                int heads, int kv_heads, int dh, int causal,
+                                int sms, int field) {
+  if (batch < 1 || sq < 1 || sk < 1 || kv_heads < 1 || heads % kv_heads ||
+      dh < 1 || dh > 256 || sms < 1)
+    return -1;
+  auto f = [&](auto c) {
+    return (int)plan_field<decltype(c)>(batch, sq, heads, kv_heads, causal,
+                                        sms, field);
+  };
+  return bf16 ? with_cfg<__nv_bfloat16>(dh, sk, f)
+              : with_cfg<float>(dh, sk, f);
 }

@@ -1,20 +1,39 @@
 """Flash-attention forward (online softmax): wrapper of the CUDA kernel.
 
 Replaces the TPU kernel `repro/kernels/flash_attention.py:flash_attention`
-(`_flash_kernel`). The kernel (`csrc/flash_attention.cu`) runs one block
-of two warpgroups per (head, 128 query rows; one and 64 rows for f32 at
-dh > 128) on Hopper's tensor cores (`wgmma`): f32 inputs through 3xTF32
-(hi*hi + hi*lo + lo*hi, the f32 accuracy of the plain version), bf16
-inputs through bf16 products with P split into two bf16 halves. K/V tiles stream through a cp.async ring in
-shared memory, and the scores, P and the running max and sum stay in
-registers, so only q, k, v and the output touch device memory. It
+(`_flash_kernel`). The kernel (`csrc/flash_attention.cu`) runs persistent
+blocks of two warpgroups (one for f32 at dh > 128) over work items of
+(batch, KV head, 128 packed rows; 64 for f32 at dh > 128): the G = H / KV
+query heads of a KV head are packed into the rows position-major
+(packed row r is position r // G of head kvh * G + r % G), so K/V tiles
+are read once per item for all G heads and a short sequence fills the
+rows (at S 32 with 4 heads over 1 KV head, one item of 128 live rows).
+The grid is what fits on the card's SMs, each block walking its items
+longest first; its K/V tiles stream through a ring in shared memory that
+every thread fills by cp.async and that mbarriers hand over (no
+`__syncthreads` in the loop, so the two warpgroups drift apart and one's
+softmax runs under the other's products), the next item's Q is loaded
+while an item computes, and O leaves through shared memory by 16-byte
+stores. Products run on Hopper's tensor cores (`wgmma`): f32 inputs
+through 3xTF32 (hi*hi + hi*lo + lo*hi, the f32 accuracy of the plain
+version), bf16 inputs through bf16 products with P split into two bf16
+halves; the scores, P and the running max and sum stay in registers. It
 computes exactly `ref.flash_attention_ref`: f32 arithmetic on f32 or bf16
 inputs, scale dh**-0.5 when 0 is passed, the causal mask aligned top-left
 with -1e30 for a masked score, out = acc / max(l, 1e-30) in the input
 dtype. It takes any Sq and Sk and dh <= 256; rows that are not 16-byte
 aligned are staged element by element inside the kernel. Its bound on
-the H100 is the 4 * N * pairs * dh operations on the tensor cores: f32 at
-495 / 3 TFLOP/s (three TF32 products each), bf16 at 989 TFLOP/s.
+the H100 is the larger of q, k, v and out moved once (3.35 TB/s) and
+4 * N * pairs * dh operations on the tensor cores: f32 at 495 / 3 TFLOP/s
+(three TF32 products each), bf16 at 989 TFLOP/s. Every configuration
+has two instances: one for calls whose q, k and v rows are all 16-byte
+aligned (the loops hold no element-by-element staging), one that stages
+unaligned rows through registers.
+
+`flash_plan` gives the launch the kernel makes for a call (its
+configuration, G, rows per item, items, keys per stage, stages, shared
+memory, blocks per SM and grid); the kernel's source exports its C mirror
+`flash_plan_field`, which the analysis gate holds equal on the card.
 
 `flash_attention` takes the TPU kernel's (N, S, dh) layout;
 `gqa_attention` takes the model's (B, S, H, dh) queries and (B, S, KV, dh)
@@ -48,7 +67,7 @@ import ctypes
 
 import torch
 
-from repro_torch.analysis.registry import kernel_contract
+from repro_torch.analysis.registry import Estimator, kernel_contract
 from repro_torch.kernels import ref
 from repro_torch.kernels.build import PLAIN_DEVICES, CudaKernel
 
@@ -58,6 +77,91 @@ KERNEL = CudaKernel(
     + [ctypes.c_float, ctypes.c_int])
 MAX_HEAD_DIM = 256
 DTYPES = (torch.float32, torch.bfloat16)
+H100_SMS = 132
+# The kernel's configurations, as `csrc/flash_attention.cu:with_cfg`
+# picks them by dtype, head dim and, at dh <= 64, Sk <= 32 (the short
+# ones): name -> (head dim, warpgroups, keys per stage, stages, Q buffers
+# per warpgroup, resident blocks per SM).
+CONFIGS = {
+    "f32-d64-short": (64, 2, 32, 2, 2, 1),
+    "f32-d64": (64, 2, 64, 2, 2, 1),
+    "f32-d128": (128, 2, 32, 2, 1, 1),
+    "f32-d256": (256, 1, 16, 1, 1, 1),
+    "bf16-d64-short": (64, 2, 32, 4, 2, 2),
+    "bf16-d64": (64, 2, 64, 4, 2, 1),
+    "bf16-d128": (128, 2, 64, 4, 2, 1),
+    "bf16-d256": (256, 2, 32, 3, 1, 1),
+}
+# `flash_plan_field`'s fields, in its order
+PLAN_FIELDS = ("smem_bytes", "items", "grid", "bk", "stages",
+               "rows_per_item", "blocks_per_sm", "group", "q_buffers",
+               "head_dim", "warpgroups", "paired")
+
+
+def flash_config(dtype: torch.dtype, dh: int, sk: int) -> str:
+    """The name of the configuration the kernel takes for (dtype, dh,
+    Sk)."""
+    kind = "bf16" if dtype == torch.bfloat16 else "f32"
+    if dh <= 64:
+        return f"{kind}-d64-short" if sk <= 32 else f"{kind}-d64"
+    return f"{kind}-d128" if dh <= 128 else f"{kind}-d256"
+
+
+def _tile_bytes(rows: int, chunks: int, sbo: int) -> int:
+    """A wgmma operand tile of `rows` x `chunks` 16-byte chunks (the
+    kernel's `Tile`): chunks * ((rows / 8) * SBO + 16) bytes."""
+    return chunks * ((rows // 8) * sbo + 16)
+
+
+def config_smem_bytes(name: str) -> int:
+    """Dynamic shared memory of one block of a configuration (the
+    kernel's `Cfg::SMEM`): mbarriers, Q buffers and the ring's stages."""
+    dh, nwg, bk, stages, qbuf, _ = CONFIGS[name]
+    f32 = name.startswith("f32")
+    e = 4 if f32 else 8
+    ck = dh // e
+    qt = _tile_bytes(64, ck, 128) * (2 if f32 and dh > 128 else 1)
+    kt = _tile_bytes(bk, ck, 128)
+    v = _tile_bytes(dh, bk // e, 144) if f32 else kt
+    stage = (2 if f32 else 1) * (kt + v)
+    bars = 3 * stages + nwg * qbuf  # full, ready, empty; Q buffers
+    return -(-8 * bars // 128) * 128 + qbuf * nwg * qt + stages * stage
+
+
+def flash_plan(b: int, sq: int, sk: int, h: int, kvh: int, dh: int,
+               dtype: torch.dtype, causal: bool, sms: int = H100_SMS) -> dict:
+    """The launch the kernel makes for q (b, sq, h, dh) and k, v (b, sk,
+    kvh, dh) on a card of `sms` SMs: its configuration, G = h / kvh query
+    heads packed per item, packed rows per item, items (b * kvh *
+    ceil(sq * G / rows)), keys per stage, stages, Q buffers per
+    warpgroup, shared memory per block, resident blocks per SM, whether
+    blocks take pairs of items (causal, more items than resident blocks)
+    and the grid: min(ceil(items / 2) if paired else items, blocks per SM
+    * sms)."""
+    if kvh < 1 or h % kvh:
+        raise ValueError(f"H={h} is not a multiple of KV={kvh}")
+    name = flash_config(dtype, dh, sk)
+    cdh, nwg, bk, stages, qbuf, minb = CONFIGS[name]
+    g = h // kvh
+    rows = 64 * nwg
+    items = b * kvh * (-(-sq * g // rows))
+    paired = bool(causal) and items > minb * sms
+    return {"config": name, "group": g, "rows_per_item": rows,
+            "items": items, "bk": bk, "stages": stages, "q_buffers": qbuf,
+            "smem_bytes": config_smem_bytes(name), "blocks_per_sm": minb,
+            "grid": min(-(-items // 2) if paired else items, minb * sms),
+            "paired": paired, "head_dim": cdh, "warpgroups": nwg}
+
+
+def flash_plan_field(bf16: int, b: int, sq: int, sk: int, h: int, kvh: int,
+                     dh: int, causal: int, sms: int, field: int) -> int:
+    """One field of `flash_plan` as the kernel's C mirror
+    `flash_plan_field` takes and returns it (-1 for a field past
+    `PLAN_FIELDS`)."""
+    plan = flash_plan(b, sq, sk, h, kvh, dh,
+                      torch.bfloat16 if bf16 else torch.float32,
+                      bool(causal), sms)
+    return int(plan[PLAN_FIELDS[field]]) if field < len(PLAN_FIELDS) else -1
 
 
 def attention_pairs(sq: int, sk: int, causal: bool) -> int:
@@ -164,13 +268,36 @@ def _gqa_attention_vmap(info, in_dims, q, k, v, causal, scale):
     return out.reshape(n, -1, *out.shape[1:]), 0
 
 
+def _plan_args(point: dict):
+    """`flash_plan_field` arguments at a point: every field, both dtypes,
+    on the H100's SMs."""
+    return [(bf16, point["b"], point["s"], point["s"], point["h"],
+             point["kv"], point["dh"], int(point["causal"]), H100_SMS, f)
+            for bf16 in (0, 1) for f in range(len(PLAN_FIELDS))]
+
+
 @kernel_contract(
     kernel=KERNEL, stands_for="flash_attention", twin="flash_attention_ref",
     twin_call=lambda args, kwargs: plain_gqa_attention(
         *args, kwargs["causal"], 0.0),
-    exactness="tolerance", atol=2e-5,
-    points=({"b": 1, "s": 192, "h": 4, "kv": 2, "dh": 64,
-             "causal": True},),
+    exactness="tolerance", atol=2e-5, helpers=("flash_plan_field",),
+    estimators=(Estimator("flash_plan_field", flash_plan_field,
+                          _plan_args),),
+    # the contract launch (points[0]), then plan shapes: the federation's
+    # neighbour web, Minitron-4B's and grok-1's prefill, whisper's
+    # encoder, a ragged packed GQA shape, dh 256
+    points=({"b": 1, "s": 192, "h": 4, "kv": 2, "dh": 64, "causal": True},
+            {"b": 16_384, "s": 32, "h": 4, "kv": 1, "dh": 64,
+             "causal": True},
+            {"b": 4, "s": 2048, "h": 24, "kv": 8, "dh": 128,
+             "causal": True},
+            {"b": 4, "s": 2048, "h": 48, "kv": 8, "dh": 128,
+             "causal": True},
+            {"b": 4, "s": 1500, "h": 12, "kv": 12, "dh": 64,
+             "causal": False},
+            {"b": 2, "s": 41, "h": 6, "kv": 2, "dh": 100, "causal": True},
+            {"b": 2, "s": 512, "h": 2, "kv": 2, "dh": 256,
+             "causal": True}),
     make_args=_contract_args)
 def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, scale: float = 0.0) -> torch.Tensor:

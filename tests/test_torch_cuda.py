@@ -1082,6 +1082,110 @@ def test_flash_under_vmap_launches_once_and_matches_plain(cuda, dtype, tol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_flash_kernel_at_the_web_shape_packs_every_row(cuda, dtype, tol):
+    """The federation's neighbour web folded to B 2,048 (S 32, 4 query
+    heads over 1 KV head, dh 64, causal): one item of 128 packed rows per
+    sequence, one launch, within the kernel's tolerance."""
+    g = _gen(11)
+    q = torch.randn((2048, 32, 4, 64), generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn((2048, 32, 1, 64), generator=g, device=cuda)
+            .to(dtype) for _ in range(2))
+    plan = flash_attention.flash_plan(2048, 32, 32, 4, 1, 64, dtype, True)
+    assert plan["items"] == 2048 and plan["bk"] == 32
+    before = flash_attention.KERNEL.launches
+    o = flash_attention.gqa_attention(q, k, v, causal=True)
+    assert flash_attention.KERNEL.launches == before + 1
+    pl = flash_attention.plain_gqa_attention(q, k, v, True, 0.0)
+    assert (o.float() - pl.float()).abs().max().item() < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_on_ragged_packed_rows(cuda, causal):
+    """6 query heads over 2 KV heads packed 3 to a position at S 41, bf16
+    dh 100 (rows of 200 bytes: the element-by-element staging), and the
+    same heads on views one element past a 16-byte boundary in f32."""
+    g = _gen(12)
+    q = torch.randn((2, 41, 6, 100), generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn((2, 41, 2, 100), generator=g, device=cuda)
+            .bfloat16() for _ in range(2))
+    o = flash_attention.gqa_attention(q, k, v, causal=causal)
+    pl = flash_attention.plain_gqa_attention(q, k, v, causal, 0.0)
+    assert (o.float() - pl.float()).abs().max().item() < 2e-2
+    q, k, v = (torch.randn((2, 41, h, 65), generator=g, device=cuda)
+               [..., 1:] for h in (6, 2, 2))
+    o = flash_attention.gqa_attention(q, k, v, causal=causal)
+    pl = flash_attention.plain_gqa_attention(q, k, v, causal, 0.0)
+    assert (o - pl).abs().max().item() < 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_flash_kernel_with_more_items_than_resident_blocks(cuda, causal,
+                                                           dtype, tol):
+    """8 x 4 KV heads x 12 row tiles of 3 packed heads = 384 items over at
+    most 132 resident blocks: the persistent blocks walk several items
+    each (in causal pairs), their K/V ring running on across items."""
+    g = _gen(13)
+    q = torch.randn((8, 512, 12, 64), generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn((8, 512, 4, 64), generator=g, device=cuda)
+            .to(dtype) for _ in range(2))
+    plan = flash_attention.flash_plan(8, 512, 512, 12, 4, 64, dtype, causal)
+    assert plan["items"] == 384 and plan["grid"] <= 2 * 132
+    assert plan["items"] > plan["grid"]
+    o = flash_attention.gqa_attention(q, k, v, causal=causal)
+    pl = flash_attention.plain_gqa_attention(q, k, v, causal, 0.0)
+    assert (o.float() - pl.float()).abs().max().item() < tol
+
+
+@pytest.mark.cuda
+def test_flash_nested_vmap_over_many_items_launches_once(cuda):
+    """The neighbour web's nested vmap at 16 clients x 8 neighbours of 8
+    sequences (1,024 items): still one launch, equal to the plain version
+    on the folded batch within bf16's tolerance."""
+    from torch.func import vmap
+    g = _gen(14)
+    q = torch.randn((16, 8, 8, 32, 4, 64), generator=g,
+                    device=cuda).bfloat16()
+    k, v = (torch.randn((16, 8, 8, 32, 1, 64), generator=g, device=cuda)
+            .bfloat16() for _ in range(2))
+    before = flash_attention.KERNEL.launches
+    with torch.no_grad():
+        out = vmap(vmap(lambda a, b, c: flash_attention.gqa_attention(
+            a, b, c, causal=True)))(q, k, v)
+    assert flash_attention.KERNEL.launches == before + 1
+    want = flash_attention.plain_gqa_attention(
+        q.reshape(1024, 32, 4, 64), k.reshape(1024, 32, 1, 64),
+        v.reshape(1024, 32, 1, 64), True, 0.0).reshape(out.shape)
+    assert (out.float() - want.float()).abs().max() < 2e-2
+
+
+@pytest.mark.cuda
+def test_flash_plan_matches_its_c_mirror(cuda):
+    """`flash_attention.flash_plan_field` against the kernel's exported
+    `flash_plan_field` over both dtypes, every configuration and both
+    masks, on the H100's SMs and on a small card's."""
+    mirror = flash_attention.KERNEL.helper("flash_plan_field",
+                                           [ctypes.c_int] * 10)
+    shapes = [(16_384, 32, 32, 4, 1, 64), (4, 2048, 2048, 24, 8, 128),
+              (4, 2048, 2048, 48, 8, 128), (4, 1500, 1500, 12, 12, 64),
+              (2, 41, 41, 6, 2, 100), (2, 512, 512, 2, 2, 256),
+              (3, 7, 300, 3, 1, 32), (1, 1, 1, 1, 1, 1)]
+    for bf16 in (0, 1):
+        for b, sq, sk, h, kv, dh in shapes:
+            for causal in (0, 1):
+                for sms in (132, 8):
+                    for f in range(len(flash_attention.PLAN_FIELDS) + 1):
+                        args = (bf16, b, sq, sk, h, kv, dh, causal, sms, f)
+                        assert mirror(*args) == \
+                            flash_attention.flash_plan_field(*args), args
+
+
+@pytest.mark.cuda
 def test_flash_wrapper_raises_where_a_gradient_would_drop(cuda):
     """The kernel has no backward: with grad mode on and q, k or v
     requiring grad the wrappers raise and name the training route,
