@@ -34,13 +34,16 @@
    bit-identical, with the wrapper's launch plan (`oneshot_plan`,
    `streamed_plan`) printed and its kernels timed as the plan launches
    them; the
-   per-row ANN selection runs on `ann_candidates` at the defaults
-   (prefix 10, probes 8): the main shape, all ties, clustered codes at
-   M = 4096 and 65,536, and with prefix_bits=0 against the one-shot
-   kernel; the grouped ANN selection on `bucket_candidates` at the same
-   five shapes, against its plain version and the per-row kernel,
-   launched twice (bit-identical), with its plan (`selection.ann_plan`)
-   and bounded on its route (the +-1 Gram of each client against its
+   per-row ANN selection (the grouped entry point's one-row instance,
+   one slot a row) runs on
+   `ann_candidates` at the defaults (prefix 10, probes 8): the main
+   shape, all ties, clustered codes at M = 4096 and 65,536, and with
+   prefix_bits=0 against the one-shot kernel, with its plan
+   (`selection.ann_plan(one_row_slots=True)`); the grouped ANN
+   selection on `bucket_candidates` at the same five shapes, against
+   its plain version and the per-row function, launched twice
+   (bit-identical), with its plan (`selection.ann_plan`); both bounded
+   on the grouped route (the +-1 Gram of each client against its
    slot's valid candidates at 1,979 TOP/s; the S x K lists read once); the
    flash-attention kernel at the serving path's shape (N = 4 * 24 heads,
    Sq = Sk = 2048, dh = 128, f32, causal) and the same in bf16, at the
@@ -72,7 +75,7 @@
    with `backend="ann"`. The one-shot run must launch the LSH, one-shot
    selection and one-shot exchange kernels and no other, the tiled run
    the LSH kernel and the tiled pair, the ANN run the LSH kernel, the
-   grouped ANN selection (exactly twice; the per-row ANN kernel never)
+   grouped ANN selection (exactly twice; the per-row function never)
    and the one-shot exchange. A run with
    `backend="oracle"` and the tiled run must give the one-shot run's
    round-0 neighbour ids and valid masks, the ANN run its round-0 id
@@ -83,7 +86,7 @@
    through the Hamming kernel must give the fused kernel's ids. At
    M = 65,536, `select_partners` must take the tiled kernel with
    `tiling="auto"` and the grouped ANN kernel with `backend="auto"`
-   (ids equal to the per-row kernel's; K, occupancy, the grouped and
+   (ids equal to the per-row function's; K, occupancy, the grouped and
    the per-row route's candidate and kernel times, and recall against
    the tiled exact kernel). Three
    profiled runs (one-shot, tiled, ANN) break round 1 down into its
@@ -327,8 +330,8 @@
    then
    {"kernels": [...]}
    for every kernel of the paths driven (the
-   per-row ANN kernel, which no path takes since the route took the
-   grouped one, is checked in 2 only), then, last,
+   per-row ANN function, which no path takes since the route took the
+   per-bucket form, is checked in 2 only), then, last,
    {"ok": true, "device": {...}}.
 
 Exits non-zero, before printing any result, without a CUDA device or
@@ -336,7 +339,7 @@ without the rest of the repository. Tolerances: LSH sums within
 1e-5 * (|plain| + ||x_row||_2) and codes equal on every bit whose |sum|
 > 1e-3 (a client's own code against its published row likewise);
 selection ids and weights equal (one-shot, tiled, per-row and grouped
-ANN); Hamming
+ANN, the last two one kernel); Hamming
 distances equal; unfused selection ids equal to the fused kernel's
 except where two Eq. 8 weights are within 1 ulp; one-shot exchange l_ij
 and target within rtol 1e-5 (atol 1e-5 for target entries near 0);
@@ -897,26 +900,15 @@ def ann_inputs(torch, m, bits, n, gen, kind, prefix_bits=10, probes=8,
     return codes, scores, cand
 
 
-def ann_bound(cand_ids, m, w, n):
-    """Codes, scores, table and candidate ids read once, the (M, N)
-    outputs written once; 3*W integer operations (XOR, popcount, add)
-    per valid candidate that is not the row itself, counted on these
-    candidates."""
-    import torch
-    k = cand_ids.shape[1]
-    nsel = min(n, m - 1)
-    rows = torch.arange(m, device=cand_ids.device)[:, None]
-    valid = int(((cand_ids < m) & (cand_ids != rows)).sum())
-    bytes_moved = (4.0 * (m * w + m + m * k + w * 32 + 1)
-                   + 8.0 * m * nsel)
-    return bound(bytes_moved, 3.0 * valid * w / INT32_OP_PER_S)
-
-
 def check_selection_ann(torch, m, bits, n, gen, kind="random",
                         prefix_bits=10, probes=8):
-    """The ANN kernel against `ann_select_ref` on the same candidates;
-    with prefix_bits=0 also against the one-shot exact kernel, whose
-    device time is recorded beside it (`oneshot_ms`)."""
+    """The per-row ANN function (the grouped entry point's one-row
+    instance on `ann.per_row_slots`, kernel `select_ann_rows_kernel`)
+    against `ann_select_ref` on the same candidates, with its plan; with
+    prefix_bits=0 also against the one-shot exact kernel, whose device
+    time is recorded beside it (`oneshot_ms`). Bounded as the grouped
+    route on the one-slot lists (`ann_grouped_bound`)."""
+    from repro_torch.core import ann
     from repro_torch.kernels import ref, selection
     codes, scores, cand = ann_inputs(torch, m, bits, n, gen, kind,
                                      prefix_bits, probes)
@@ -931,7 +923,9 @@ def check_selection_ann(torch, m, bits, n, gen, kind="random",
     if not (torch.equal(ki, pi) and torch.equal(kw, pw)):
         raise AssertionError(f"ANN selection disagrees with its plain "
                              f"version at m={m}, kind={kind}")
-    out = {"k": cand.ids.shape[1], "oneshot_ms": None}
+    k = cand.ids.shape[1]
+    out = {"k": k, "oneshot_ms": None, "plan": selection.ann_plan(
+        m, bits // 32, n, k, m, one_row_slots=True)}
     if prefix_bits == 0:
         oi, ow = selection.fused_select(codes, scores, bits=bits, gamma=1.0,
                                         num_neighbors=n)
@@ -943,11 +937,13 @@ def check_selection_ann(torch, m, bits, n, gen, kind="random",
             codes, scores, bits=bits, gamma=1.0, num_neighbors=n),
             ("fused_select_kernel",))
     n0 = selection.ANN_KERNEL.launches
-    t = timings(call, ("select_ann_kernel",), plain,
+    t = timings(call, ("select_ann_rows_kernel",), plain,
                 plain_iters=1 if m > 8192 else (3 if m >= 1024 else 20))
-    bms, by = ann_bound(cand.ids, m, bits // 32, n)
-    return dict(**t, **out, max_abs_err=max_finite_diff(kw, pw), bound_ms=bms,
-                bound_by=by, launches=selection.ANN_KERNEL.launches - n0)
+    bms, by, pairs = ann_grouped_bound(ann.per_row_slots(cand.ids, m), codes,
+                                       n)
+    return dict(**t, **out, pairs=pairs, max_abs_err=max_finite_diff(kw, pw),
+                bound_ms=bms, bound_by=by,
+                launches=selection.ANN_KERNEL.launches - n0)
 
 
 def ann_grouped_bound(cand, codes, n):
@@ -974,7 +970,7 @@ def ann_grouped_bound(cand, codes, n):
 def check_selection_ann_grouped(torch, m, bits, n, gen, kind="random",
                                 prefix_bits=10, probes=8, departed=0.0):
     """The grouped ANN kernel on `bucket_candidates` against its plain
-    version (`ann_select_grouped_ref`) and the per-row kernel on
+    version (`ann_select_grouped_ref`) and the per-row function on
     `ann_candidates` of the same codes, launched twice (bit-identical,
     else it raises), with its plan; with prefix_bits=0 also against the
     one-shot exact kernel. The inputs are `ann_inputs`' (the same draws
@@ -1005,7 +1001,7 @@ def check_selection_ann_grouped(torch, m, bits, n, gen, kind="random",
                              f"plain version at m={m}, kind={kind}")
     if not (torch.equal(ki, ri) and torch.equal(kw, rw)):
         raise AssertionError(f"grouped ANN selection disagrees with the "
-                             f"per-row kernel at m={m}, kind={kind}")
+                             f"per-row function at m={m}, kind={kind}")
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"two grouped ANN launches differ at m={m}")
     s, k = cand.lists.shape
@@ -1014,7 +1010,7 @@ def check_selection_ann_grouped(torch, m, bits, n, gen, kind="random",
            "oneshot_ms": None, "per_row_ms": device_ms(
                lambda: selection.fused_select_ann(
                    codes, scores, rows.ids, bits=bits, gamma=1.0,
-                   num_neighbors=n), ("select_ann_kernel",))}
+                   num_neighbors=n), ("select_ann_rows_kernel",))}
     if prefix_bits == 0:
         oi, ow = selection.fused_select(codes, scores, bits=bits, gamma=1.0,
                                         num_neighbors=n)
@@ -1933,12 +1929,13 @@ def check_ann_round0_order(torch, hist):
 
 def check_auto_ann_at_scale(torch, gen, m=65_536, bits=256, n=16):
     """Path 2: `select_partners(backend="auto")` at M=65,536 on clustered
-    codes must launch the grouped ANN kernel once and neither the per-row
-    ANN kernel nor an exact one, and give `ann_select_ref`'s ids on
-    `ann_candidates` of the same codes, which are also the per-row
-    kernel's (so the recall is the per-row route's). Reports K, the
-    occupancy, the route's parts (`bucket_candidates` ms, the grouped
-    kernel's device ms) beside the per-row kernel's device ms on
+    codes must launch the grouped ANN kernel once through the route's
+    handle and neither the per-row function's handle nor an exact
+    kernel, and give `ann_select_ref`'s ids on `ann_candidates` of the
+    same codes, which are also the per-row function's (so the recall is
+    the per-row route's). Reports K, the occupancy, the route's parts
+    (`bucket_candidates` ms, the grouped kernel's device ms) beside the
+    per-row function's device ms (one slot a row) on
     `ann_candidates`, the whole ANN selection's ms, and recall@N against
     the tiled exact kernel on the same inputs (device time; the profiler
     may drop records of the 5 ms tiled kernel, so its CUDA-event call time
@@ -1985,7 +1982,8 @@ def check_auto_ann_at_scale(torch, gen, m=65_536, bits=256, n=16):
                                           ("select_ann_grouped_kernel",)),
            "select_partners_ms": time_ms(lambda: select_partners(
                codes, scores, fed, backend="auto", seed=0), iters=5),
-           "per_row_kernel_ms": device_ms(per_row, ("select_ann_kernel",)),
+           "per_row_kernel_ms": device_ms(per_row,
+                                          ("select_ann_rows_kernel",)),
            "tiled_exact_call_ms": time_ms(tiled, iters=5),
            "tiled_exact_ms": device_ms(tiled, ("select_tiled_kernel",),
                                        iters=5)}

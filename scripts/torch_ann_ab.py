@@ -3,6 +3,7 @@
 
     python3 scripts/torch_ann_ab.py [--root DIR] [--label NAME]
                                     [--save FILE] [--against FILE]
+                                    [--per-row [--rows R,R,...]]
 
 Loads `repro_torch` from DIR/src (default: this checkout), builds its
 selection kernels there, and times its ANN route at (M, bits, N, codes,
@@ -23,6 +24,20 @@ of the same codes (`plain_equal`); `--save` keeps every shape's ids and
 weights in FILE, and `--against` prints per shape whether they equal bit
 for bit those saved by another checkout (`bit_equal`).
 
+`--per-row` times the per-row function instead: `fused_select_ann` on
+`ann_candidates` (`chip_smoke.ann_inputs`, the draws of
+`chip_smoke.py`'s five per-row checks) at (M, bits, N, codes, prefix
+bits, probes) = (10, 256, 9, random, 10, 8), (10, 256, 9, ties, 10, 8),
+(4,096, 256, 16, clustered, 10, 8), (65,536, 256, 16, clustered, 10,
+8) and (4,096, 256, 16, random, 0, 0), its device ms under the name of
+the kernel it launches in that checkout (`select_ann_rows_kernel`, the
+grouped entry point's one-row instance, where the checkout has
+`ann_plan(one_row_slots=)`, else the per-row `select_ann_kernel`), with
+`plain_equal` against `ann_select_ref` and the plan where there is one;
+`--rows` there also times the one-row instance at each of these clients
+a CTA (`selection.ONE_SLOT_ROWS` set for the timing, every output held
+bit-equal to the plan's).
+
 To compare the parent's route with the change's on one card, run it in
 turns on both checkouts in one command (parent, change, change, parent),
 e.g. with the parent unpacked by `git archive` into a gitignored
@@ -40,6 +55,10 @@ HERE = Path(__file__).resolve().parents[1]
 SHAPES = ((10, 256, 9, "random", 10, 8), (4096, 256, 16, "clustered", 10, 8),
           (4096, 256, 16, "random", 0, 0),
           (65_536, 256, 16, "clustered", 10, 8))
+PER_ROW_SHAPES = ((10, 256, 9, "random", 10, 8), (10, 256, 9, "ties", 10, 8),
+                  (4096, 256, 16, "clustered", 10, 8),
+                  (65_536, 256, 16, "clustered", 10, 8),
+                  (4096, 256, 16, "random", 0, 0))
 
 
 def main() -> int:
@@ -48,6 +67,8 @@ def main() -> int:
     ap.add_argument("--label", default="")
     ap.add_argument("--save", default="")
     ap.add_argument("--against", default="")
+    ap.add_argument("--per-row", action="store_true")
+    ap.add_argument("--rows", default="")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -72,6 +93,11 @@ def main() -> int:
     gen.manual_seed(0)
     saved = {}
     other = torch.load(args.against) if args.against else {}
+    if args.per_row:
+        per_row(torch, args, chip_smoke, ref, selection, gen, saved, other)
+        if args.save:
+            torch.save(saved, args.save)
+        return 0
     for m, bits, n, kind, pb, probes in SHAPES:
         if kind == "clustered":
             codes, scores = chip_smoke.clustered_codes(torch, m, bits, gen)
@@ -128,6 +154,57 @@ def main() -> int:
     if args.save:
         torch.save(saved, args.save)
     return 0
+
+
+def per_row(torch, args, chip_smoke, ref, selection, gen, saved, other):
+    """The `--per-row` mode: one JSON line per PER_ROW_SHAPES entry."""
+    import inspect
+    one_slot = "one_row_slots" in inspect.signature(
+        selection.ann_plan).parameters
+    name = "select_ann_rows_kernel" if one_slot else "select_ann_kernel"
+    rows_sweep = [int(r) for r in args.rows.split(",") if r] \
+        if one_slot else []
+    for m, bits, n, kind, pb, probes in PER_ROW_SHAPES:
+        codes, scores, cand = chip_smoke.ann_inputs(torch, m, bits, n, gen,
+                                                    kind, pb, probes)
+        kw = dict(bits=bits, gamma=1.0, num_neighbors=n)
+        kernel = lambda: selection.fused_select_ann(  # noqa: E731
+            codes, scores, cand.ids, **kw)
+        got = kernel()
+        lut = ref.selection_lut(bits // 32, bits, 1.0, device="cuda")
+        want = ref.ann_select_ref(codes, scores, cand.ids, lut,
+                                  num_neighbors=n)
+        k = cand.ids.shape[1]
+        out = {"label": args.label, "route": "per_row", "kernel": name,
+               "m": m, "bits": bits, "n": n, "kind": kind,
+               "prefix_bits": pb, "probes": probes, "k": k,
+               "plan": selection.ann_plan(m, bits // 32, n, k, m,
+                                          one_row_slots=True)
+               if one_slot else None,
+               "plain_equal": all(bool(torch.equal(a, b))
+                                  for a, b in zip(got, want)),
+               "kernel_ms": chip_smoke.device_ms(kernel, (name,))}
+        if rows_sweep:
+            default, out["rows_ms"] = selection.ONE_SLOT_ROWS, {}
+            try:
+                for r in rows_sweep:
+                    selection.ONE_SLOT_ROWS = r
+                    again = kernel()
+                    out["rows_ms"][r] = {
+                        "bit_equal": all(bool(torch.equal(a, b))
+                                         for a, b in zip(again, got)),
+                        "ms": chip_smoke.device_ms(kernel, (name,))}
+            finally:
+                selection.ONE_SLOT_ROWS = default
+        key = f"per-row-{m}-{bits}-{n}-{kind}-{pb}-{probes}"
+        if key in other:
+            out["bit_equal"] = all(bool(torch.equal(a, b.to(a.device)))
+                                   for a, b in zip(got, other[key]))
+        print(json.dumps(out), flush=True)
+        if args.save:
+            saved[key] = tuple(a.cpu() for a in got)
+        del codes, scores, cand, got, want
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

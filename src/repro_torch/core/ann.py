@@ -18,7 +18,8 @@ The exact Eq. 6-8 weights then run only on the candidate sets: one
 list per non-empty bucket (`bucket_candidates`, the route's
 `kernels.selection.fused_select_ann_grouped`), or each client's row of
 it, the (M, K) ids of `ann_candidates`
-(`kernels.selection.fused_select_ann`). Buckets are a padded (B, cap)
+(`kernels.selection.fused_select_ann`, which runs the same kernel one
+slot a row: `per_row_slots`). Buckets are a padded (B, cap)
 table; overflow past `cap` is dropped from the candidate side only.
 Invalid slots hold the sentinel id M. The permutation seed is the
 round index, as for the LSH projection, so every peer can recompute the
@@ -239,6 +240,24 @@ def bucket_candidates(codes: torch.Tensor, scores: torch.Tensor, *, seed,
     return AnnBucketCandidates(
         lists, bucket, slot_of[bucket].to(torch.int32),
         order.to(torch.int32), starts.to(torch.int32), counts, dropped)
+
+
+def per_row_slots(cand_ids: torch.Tensor, m: int) -> AnnBucketCandidates:
+    """Arbitrary (M, K) per-row candidate ids (sentinel M) in per-bucket
+    form, one slot a row: `lists` is `cand_ids` itself (no copy), client
+    i alone in slot i (`slot = order = arange(M)`, `starts =
+    arange(M + 1)`), as if each row were a bucket of its own (`bucket =
+    arange(M)`, `counts` ones, nothing dropped). So `lists[slot]` is
+    `cand_ids`, and the grouped kernel and its plain version run the
+    per-row contract. Every size comes from the arguments, so nothing is
+    read back from the device."""
+    dev = cand_ids.device
+    idx = torch.arange(m, dtype=torch.int32, device=dev)
+    return AnnBucketCandidates(
+        cand_ids, idx, idx, idx,
+        torch.arange(m + 1, dtype=torch.int32, device=dev),
+        torch.ones((m,), dtype=torch.int32, device=dev),
+        torch.zeros((), dtype=torch.int32, device=dev))
 
 
 def occupancy_stats(c: AnnCandidates) -> dict:

@@ -4,8 +4,10 @@
 //
 // Replaces repro/kernels/selection.py:fused_select (_select_kernel),
 // repro/kernels/selection.py:fused_select_tiled (_select_tiled_kernel)
-// and, on the ANN route, repro/kernels/selection.py:fused_select_ann
-// (_select_ann_kernel; the grouped instance, below).
+// and repro/kernels/selection.py:fused_select_ann (_select_ann_kernel;
+// the grouped entry point, below: the ANN route's per-bucket lists on the
+// tile instance, the per-row function's arbitrary lists on the one-row
+// instance).
 // For every client row i: the Hamming distance d_ij to every code, the
 // weight w_ij = s_j * LUT[d_ij] under the Table-3 switches (use_rank off:
 // LUT[d_ij]; use_lsh off: s_j, or 1 with both off), self at -inf, and the
@@ -86,6 +88,29 @@
 //   operations a pair at 1,979 TOP/s: 0.011 ms for 65,536 clustered
 //   clients at K = 2,336) or the lists, codes and outputs read once
 //   (0.0004 ms at 4,096); at 65,536 it runs far above both.
+// - The one-row instance of the grouped entry point (warp_rows = 1). The
+//   per-row function (selection.py:fused_select_ann) has arbitrary lists,
+//   one a client (core/ann.py:per_row_slots: one slot a row). A tile of
+//   that form holds one live row, so the tile instance runs one row's
+//   products and epilogue on a warp built for 32 (2.8x the per-row
+//   kernel it replaced at 65,536 clients, K = 2,336, in one H100 run;
+//   selection.py:ann_plan says what was timed). Here a warp takes one
+//   client: it finds the client's slot by the same search over starts[],
+//   and its lanes walk the slot's positions, 32 * P a step, each lane
+//   gathering its candidate's code words (16-byte loads where W % 4 == 0)
+//   and score by id and taking the distance by XOR + popcount. The next
+//   step's codes and scores are in flight while this step's are weighed,
+//   its ids two steps ahead. The running top N lives across the warp's
+//   registers, rank q * 32 + lane in lane `lane`: a candidate above the
+//   threshold (the N-th weight once N are kept, -inf before, so no -inf
+//   weight enters) goes in at rank #{kept weights >= it} (later
+//   positions of equal weight rank after), the ranks behind it shift by
+//   one lane, all in a few warp instructions; candidates go in in
+//   position order, so the list is the first N of a stable sort by
+//   position, as lax.top_k gives them. The list is the output, its ranks
+//   past the count (0, -inf). Bound on the H100: the lists read once (the
+//   M*K*4 bytes: 0.18 ms at 65,536, K = 2,336); the gathered codes come
+//   from L2 (4.9 GB there; 0.78 ms in one H100 run), so it runs above it.
 // Nothing is atomic and every list sees its columns in one order, so a
 // launch gives the same bits every time.
 #include <cooperative_groups.h>
@@ -105,6 +130,7 @@ constexpr int MAX_NSEL = 128;
 constexpr int NR_LIST = 16;          // grouped: lists in registers to here
 constexpr int KNOCK_THREADS = 256;   // knockout instance
 constexpr int NONE = 0x7fffffff;     // "no candidate" index
+constexpr int MAX_ROW_WARPS = 8;     // one-row instance: warps (clients) a CTA
 
 struct Args {
   const uint32_t* codes;   // (m, w) packed bits
@@ -879,6 +905,218 @@ select_ann_grouped_kernel(Args a) {
   select_mma<KW, FULL, true, NR>(a);
 }
 
+// A candidate id names a client: 0 <= id < m (the sentinel m, and any id
+// outside the range, weighs -inf and is never read).
+__device__ __forceinline__ bool in_range(int id, int m) {
+  return (unsigned)id < (unsigned)m;
+}
+
+// The one-row instance (see the head of the file): warp `warp` of CTA b
+// takes client position p = b * a.rows + warp of order[]. KW: the code
+// words padded to 8, 16 or 32; P: candidates a lane takes a step; NQ: list
+// ranks a lane holds (N <= 32 * NQ).
+template <int KW, bool FULL, int NQ>
+__global__ void __launch_bounds__(32 * MAX_ROW_WARPS)
+select_ann_rows_kernel(Args a) {
+  constexpr int P = KW <= 16 ? 2 : 1;
+  constexpr int STEP = 32 * P;
+  constexpr unsigned ALL = 0xffffffffu;
+  __shared__ float lut_s[32 * 32 + 1];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int m = a.m, w = a.w, k = a.k, nsel = a.nsel;
+  const bool lsh = FULL || a.use_lsh != 0, rank = FULL || a.use_rank != 0;
+  for (int d = threadIdx.x; d <= w * 32; d += blockDim.x)
+    lut_s[d] = __ldg(a.lut + d);
+  __syncthreads();
+  const int p = blockIdx.x * a.rows + warp;
+  if (p >= m) return;
+  // the slot whose clients hold position p: the last s with starts[s] <= p
+  // (32 ways a round)
+  int lo = 0, hi = a.n_slots;
+  while (hi - lo > 1) {
+    const int step = (hi - lo + 31) / 32;
+    const int s = lo + lane * step;
+    const bool le = s < hi && __ldg(a.starts + s) <= p;
+    const int last = 31 - __clz(__ballot_sync(ALL, le));
+    hi = min(hi, lo + (last + 1) * step);
+    lo += last * step;
+  }
+  const int row = __ldg(a.order + p);
+  const int* list = a.lists + (size_t)lo * k;
+  uint32_t own[KW];
+#pragma unroll
+  for (int q = 0; q < KW; ++q)
+    own[q] = lsh && q < w ? __ldg(a.codes + (size_t)row * w + q) : 0u;
+
+  auto load_ids = [&](int c0, int (&r)[P]) {
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const int pos = c0 + 32 * j + lane;
+      r[j] = pos < k ? __ldg(list + pos) : m;
+    }
+  };
+  // a candidate's code words and score, zero for a sentinel
+  auto gather = [&](const int (&id)[P], uint32_t (&c)[P][KW], float (&sc)[P]) {
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const bool ok = in_range(id[j], m);
+      const uint32_t* src = a.codes + (size_t)(ok ? id[j] : 0) * w;
+      if (lsh && a.vec) {
+#pragma unroll
+        for (int q = 0; q < KW; q += 4) {
+          uint4 v = make_uint4(0u, 0u, 0u, 0u);
+          if (ok && q < w) v = __ldg(reinterpret_cast<const uint4*>(src + q));
+          c[j][q] = v.x;
+          c[j][q + 1] = v.y;
+          c[j][q + 2] = v.z;
+          c[j][q + 3] = v.w;
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < KW; ++q)
+          c[j][q] = lsh && ok && q < w ? __ldg(src + q) : 0u;
+      }
+      sc[j] = rank && ok ? __ldg(a.scores + id[j]) : 0.0f;
+    }
+  };
+
+  // the running list: rank q * 32 + lane in (lv[q], li[q]); empty ranks
+  // (-inf, 0), which no candidate's weight reaches
+  float lv[NQ];
+  int li[NQ];
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) {
+    lv[q] = -INFINITY;
+    li[q] = 0;
+  }
+  int cnt = 0;
+  float thr = -INFINITY;
+  const int q_last = (nsel - 1) >> 5, l_last = (nsel - 1) & 31;
+  auto insert = [&](float v, int id) {
+    int at = 0;
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) at += __popc(__ballot_sync(ALL, lv[q] >= v));
+#pragma unroll
+    for (int q = NQ - 1; q >= 0; --q) {
+      float up = __shfl_up_sync(ALL, lv[q], 1);
+      int upi = __shfl_up_sync(ALL, li[q], 1);
+      if (q > 0) {
+        const float cv = __shfl_sync(ALL, lv[q > 0 ? q - 1 : 0], 31);
+        const int ci = __shfl_sync(ALL, li[q > 0 ? q - 1 : 0], 31);
+        if (lane == 0) {
+          up = cv;
+          upi = ci;
+        }
+      }
+      const int r = q * 32 + lane;
+      if (r > at) {
+        lv[q] = up;
+        li[q] = upi;
+      } else if (r == at) {
+        lv[q] = v;
+        li[q] = id;
+      }
+      if (r >= nsel) {
+        lv[q] = -INFINITY;
+        li[q] = 0;
+      }
+    }
+    if (++cnt >= nsel) {
+      cnt = nsel;
+      float t = lv[0];
+#pragma unroll
+      for (int q = 1; q < NQ; ++q) t = q == q_last ? lv[q] : t;
+      thr = __shfl_sync(ALL, t, l_last);
+    }
+  };
+
+  int id0[P], id1[P], id2[P];
+  uint32_t c0w[P][KW], c1w[P][KW];
+  float s0[P], s1[P];
+  load_ids(0, id0);
+  load_ids(STEP, id1);
+  gather(id0, c0w, s0);
+  for (int c0 = 0; c0 < k; c0 += STEP) {
+    // in flight while this step is weighed: the next step's codes and
+    // scores, the ids of the step after
+    gather(id1, c1w, s1);
+    load_ids(c0 + 2 * STEP, id2);
+    float v[P];
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      float x = rank ? s0[j] : 1.0f;
+      if (lsh) {
+        int d = 0;
+#pragma unroll
+        for (int q = 0; q < KW; ++q) d += __popc(own[q] ^ c0w[j][q]);
+        x = x * lut_s[d];
+      }
+      v[j] = in_range(id0[j], m) && id0[j] != row ? x : -INFINITY;
+    }
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      unsigned enter = __ballot_sync(ALL, v[j] > thr);
+      while (enter) {
+        const int src = __ffs(enter) - 1;
+        enter &= enter - 1;
+        const float vs = __shfl_sync(ALL, v[j], src);
+        const int is = __shfl_sync(ALL, id0[j], src);
+        if (vs > thr) insert(vs, is);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      id0[j] = id1[j];
+      id1[j] = id2[j];
+      s0[j] = s1[j];
+#pragma unroll
+      for (int q = 0; q < KW; ++q) c0w[j][q] = c1w[j][q];
+    }
+  }
+  const size_t out = (size_t)row * nsel;
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) {
+    const int r = q * 32 + lane;
+    if (r < nsel) {
+      a.ids_out[out + r] = li[q];
+      a.w_out[out + r] = lv[q];
+    }
+  }
+}
+
+// The one-row instance for kw words, N and the switches: `tiles` CTAs of
+// a.rows warps.
+template <int KW>
+cudaError_t launch_rows_kw(const Args& a, int tiles, cudaStream_t s) {
+  const bool full = a.use_lsh && a.use_rank;
+  const int nq = a.nsel <= 32 ? 1 : (a.nsel <= 64 ? 2 : 4);
+  const dim3 grid((unsigned)tiles), block(32 * a.rows);
+  switch (nq * 2 + full) {
+    case 2: select_ann_rows_kernel<KW, false, 1><<<grid, block, 0, s>>>(a); break;
+    case 3: select_ann_rows_kernel<KW, true, 1><<<grid, block, 0, s>>>(a); break;
+    case 4: select_ann_rows_kernel<KW, false, 2><<<grid, block, 0, s>>>(a); break;
+    case 5: select_ann_rows_kernel<KW, true, 2><<<grid, block, 0, s>>>(a); break;
+    case 8: select_ann_rows_kernel<KW, false, 4><<<grid, block, 0, s>>>(a); break;
+    default: select_ann_rows_kernel<KW, true, 4><<<grid, block, 0, s>>>(a); break;
+  }
+  return cudaGetLastError();
+}
+
+int launch_rows(const Args& a, int kw, int tiles, cudaStream_t s) {
+  if ((kw != 8 && kw != 16 && kw != 32) || a.w > kw || a.nsel > MAX_NSEL ||
+      a.rows < 1 || a.rows > MAX_ROW_WARPS || tiles < 1 ||
+      (long long)tiles * a.rows < a.m)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  if (kw == 8)
+    err = launch_rows_kw<8>(a, tiles, s);
+  else if (kw == 16)
+    err = launch_rows_kw<16>(a, tiles, s);
+  else
+    err = launch_rows_kw<32>(a, tiles, s);
+  return (int)err;
+}
+
 enum class Kind { oneshot, tiled, grouped };
 
 // `row_ctas` tiles of a.rows rows, each a cluster of a.splits CTAs.
@@ -1030,13 +1268,16 @@ extern "C" int fused_select_tiled(const void* codes, const float* scores,
 // (kernels/selection.py:ann_plan): kw, `rows` a tile (a multiple of 32,
 // at most 128), the positions cut into `splits` ranges of `split_len`,
 // and `tiles` >= ceil(m / rows) + n_slots tiles of which those past a
-// slot's clients exit. Returns cudaGetLastError() after launching.
+// slot's clients exit; with warp_rows = 1 the one-row instance instead:
+// `tiles` >= ceil(m / rows) CTAs of `rows` warps (at most 8), one client
+// a warp (splits and split_len unused). Returns cudaGetLastError() after
+// launching.
 extern "C" int fused_select_ann_grouped(
     const void* codes, const float* scores, const float* lut,
     const int* lists, const int* order, const int* starts, int m, int w,
     int k, int n_slots, int nsel, int use_lsh, int use_rank, int kw, int rows,
-    int splits, int split_len, int tiles, int* ids_out, float* w_out,
-    int device, void* stream) {
+    int splits, int split_len, int tiles, int warp_rows, int* ids_out,
+    float* w_out, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (m < 1 || w < 1 || k < 1 || n_slots < 1 || nsel < 1 || nsel > k ||
@@ -1046,5 +1287,6 @@ extern "C" int fused_select_ann_grouped(
   const Args a = {static_cast<const uint32_t*>(codes), scores, lut, m, w,
                   nsel, use_lsh, use_rank, rows, splits, split_len, ids_out,
                   w_out, lists, order, starts, k, n_slots, vec};
+  if (warp_rows) return launch_rows(a, kw, tiles, (cudaStream_t)stream);
   return launch_plan<Kind::grouped>(a, kw, tiles, (cudaStream_t)stream);
 }

@@ -1,6 +1,6 @@
 """Fused peer selection (WPFed Eq. 6-8 + top-N): wrappers of the one-shot,
-the column-tiled and the two ANN CUDA kernels, and the launch plans of
-the tensor-core ones.
+the column-tiled and the grouped ANN CUDA kernels (the last under two
+wrappers: per-bucket and per-row lists), and their launch plans.
 
 `fused_select` and `fused_select_tiled` replace the TPU kernels
 `repro/kernels/selection.py:fused_select` (`_select_kernel`) and
@@ -28,11 +28,12 @@ the main path's M=10 it is launch latency.
 
 The TPU kernel `repro/kernels/selection.py:fused_select_ann`
 (`_select_ann_kernel`), Eq. 6-8 on each row's K candidate ids from
-`core/ann.py` with ties by candidate position, has two counterparts.
-`fused_select_ann_grouped`, the route's (`core/neighbor.py`), takes the
-per-bucket form (`ann.bucket_candidates`): a client's candidates depend
-only on its bucket, so up to `rows` clients of one slot form a tile of
-the exact kernels' design in `csrc/selection.cu` (binary tensor cores,
+`core/ann.py` with ties by candidate position, runs on one instance
+with two entry forms. `fused_select_ann_grouped`, the route's
+(`core/neighbor.py`), takes the per-bucket form
+(`ann.bucket_candidates`): a client's candidates depend only on its
+bucket, so up to `rows` clients of one slot form a tile of the exact
+kernels' design in `csrc/selection.cu` (binary tensor cores,
 lane-owned lists, cluster splits), whose columns are the slot's list
 positions, codes and scores gathered by id through cp.async; 8-column
 steps of sentinels alone are skipped. `ann_plan` (rows, tiles, splits)
@@ -41,9 +42,16 @@ the device between the codes and the launch. Its bound is the
 2*M*K*W*32 operations of the +-1 Gram on the rows' own lists, or the
 S*K*4 bytes of the lists with the codes and the outputs.
 `fused_select_ann` keeps the per-row contract for arbitrary (M, K)
-candidate ids with `csrc/selection_ann.cu`: one warp per row, codes
-gathered by id (the TPU wrapper's (M, K, W) gather is not carried over),
-bound 3*M*K*W integer operations or the M*K*4 bytes of candidate ids.
+candidate ids (repeats, the row itself anywhere, sentinels anywhere)
+on the same entry point, one slot a row (`ann.per_row_slots`: the ids
+are the lists, client i alone in slot i), where
+`ann_plan(one_row_slots=True)` takes the entry point's one-row
+instance: a warp per client, its lanes on the candidates (codes and
+scores gathered by id, XOR + popcount, the next step's loads in
+flight), the running top-N across the warp's registers. Its bound is
+the M*K*4 bytes of the ids. The two wrappers launch through two
+handles on the one symbol (`ANN_KERNEL`, `GROUPED_KERNEL`), so their
+launches are counted apart.
 
 Each wrapper takes its plain version (`ref.fused_select_ref`,
 `ref.fused_select_tiled_ref`, `ref.ann_select_ref`,
@@ -311,11 +319,114 @@ def fused_select_tiled(codes: torch.Tensor, scores: torch.Tensor, *,
                    plan_args=_plan_args(select_plan(m, w, num_neighbors)))
 
 
-ANN_KERNEL = CudaKernel(
-    "selection_ann", "selection_ann.cu", "fused_select_ann",
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+_GROUPED_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13 + \
+    [ctypes.c_void_p] * 2
+GROUPED_KERNEL = CudaKernel("selection_ann_grouped", "selection.cu",
+                            "fused_select_ann_grouped", _GROUPED_ARGS)
+# the per-row function's handle on the same entry point: its launches are
+# counted apart from the route's
+ANN_KERNEL = CudaKernel("selection_ann", "selection.cu",
+                        "fused_select_ann_grouped", _GROUPED_ARGS)
+# the one-row instance (`ann_plan(one_row_slots=True)`): clients a CTA,
+# one a warp (csrc/selection.cu takes at most 8)
+ONE_SLOT_ROWS = 4
+INT32_MAX = 2 ** 31 - 1
+
+
+def ann_smem_bytes(kw: int, rows: int, nsel: int) -> int:
+    """Dynamic shared memory of one grouped CTA (csrc/selection.cu:
+    layout): `select_smem_bytes` with the grouped list stride, and a
+    ring of three BLOCK_K-id tiles."""
+    return select_smem_bytes(kw, rows, nsel, grouped=True) + 4 * 3 * BLOCK_K
+
+
+def ann_plan(m: int, w: int, n: int, k: int, n_slots: int, *,
+             one_row_slots: bool = False) -> dict:
+    """The grouped ANN kernel's launch for M clients, W words, N =
+    min(n, M - 1) partners, K candidate positions and S = `n_slots` list
+    rows (`bucket_candidates`), from these shapes alone: `rows` per tile
+    (ROWS_PER_WARP * `warps`: MAX_WARPS, halved while the CTA's shared
+    memory would pass MAX_SHARED_BYTES; warps past a small bucket's
+    clients skip the products and still stage columns, which measured
+    faster on the H100 at M = 10 and 4,096 than CTAs sized to the mean
+    bucket); `tiles` = ceil(M / rows) + S, a bound on sum over slots of
+    ceil(clients / rows) for any bucket layout (tiles past a slot's
+    clients exit); the K positions cut into `splits` ranges of
+    `split_len` (a multiple of 8; as many CTAs of a cluster per tile as
+    bring the tiles the buckets are expected to fill, max(ceil(M / rows),
+    min(S, M)), to two CTAs an SM, up to MAX_SPLITS and at least
+    SPLIT_MIN_COLS positions each). `ctas` is the grid, `smem_bytes` one
+    CTA's dynamic shared memory.
+
+    `one_row_slots` (only the per-row function's `core.ann.per_row_slots`
+    passes it: S = M whatever `n_slots` says, one client a slot, so the
+    plan is a function of (M, W, N, K)) takes the one-row instance
+    (`instance` "warp"): a warp per client, `rows` = `warps` =
+    ONE_SLOT_ROWS clients a CTA, `tiles` = ceil(M / rows) CTAs, no split,
+    `block_k` the positions a warp weighs a step (two a lane up to 16
+    words, else one), no dynamic shared memory. Timed on the H100
+    (`scripts/torch_ann_ab.py --per-row`, M = 65,536, K = 2,336): the
+    tile instance on this form took 4.03 / 6.09 / 8.77 ms at 32 / 64 /
+    128 rows a tile, the per-row kernel it replaced 1.44-1.45, the
+    one-row instance 0.780 / 0.781-0.796 / 0.797-0.799 at 2 / 4 / 8
+    clients a CTA (4 is within 3 % of the best at every per-row shape of
+    `chip_smoke.py`)."""
+    nsel = max(min(n, m - 1), 0)
+    kw = mma_words(w)
+    if one_row_slots:
+        tiles = -(-m // ONE_SLOT_ROWS)
+        return {"instance": "warp", "kw": kw, "warps": ONE_SLOT_ROWS,
+                "rows": ONE_SLOT_ROWS, "threads": 32 * ONE_SLOT_ROWS,
+                "tiles": tiles, "splits": 1, "split_len": -(-k // 8) * 8,
+                "block_k": 64 if kw <= 16 else 32, "smem_bytes": 0,
+                "ctas": tiles}
+    warps = MAX_WARPS
+    while warps > 1 and ann_smem_bytes(kw, ROWS_PER_WARP * warps,
+                                       nsel) > MAX_SHARED_BYTES:
+        warps //= 2
+    rows = ROWS_PER_WARP * warps
+    tiles = -(-m // rows) + n_slots
+    filled = max(-(-m // rows), min(n_slots, m))
+    most_splits = max(1, min(MAX_SPLITS, -(-k // SPLIT_MIN_COLS)))
+    splits = min(most_splits, -(-2 * FILL_SMS // filled))
+    split_len = -(-(-(-k // splits)) // 8) * 8
+    return {"kw": kw, "warps": warps, "rows": rows, "threads": 32 * warps,
+            "tiles": tiles, "splits": splits, "split_len": split_len,
+            "block_k": BLOCK_K, "smem_bytes": ann_smem_bytes(kw, rows, nsel),
+            "ctas": tiles * splits}
+
+
+def _launch_grouped(kernel: CudaKernel, codes: torch.Tensor,
+                    scores: torch.Tensor, lut: torch.Tensor, cand, nsel: int,
+                    use_lsh: bool, use_rank: bool, plan: dict):
+    """Launch the grouped instance (`kernel`, a handle on
+    `fused_select_ann_grouped`) on the per-bucket form `cand` after the
+    checks both ANN wrappers share."""
+    m, w = codes.shape
+    s, k = cand.lists.shape if cand.lists.ndim == 2 else (0, 0)
+    for name, t, shape in (("lists", cand.lists, (s, k)),
+                           ("order", cand.order, (m,)),
+                           ("starts", cand.starts, (s + 1,))):
+        if t.dtype != torch.int32 or t.shape != shape or \
+                t.device != codes.device:
+            raise ValueError(f"cand.{name} must be {shape} int32 on the "
+                             f"codes' device, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if nsel > TILED_MAX_NEIGHBORS or w > TILED_MAX_WORDS or nsel > k or \
+            s < 1:
+        raise ValueError(f"N={nsel}, W={w}, K={k}, S={s}: the grouped ANN "
+                         f"kernel takes N <= {TILED_MAX_NEIGHBORS}, N <= K "
+                         f"and codes of at most {TILED_MAX_WORDS * 32} bits")
+    # the kernel counts positions and CTAs in int32: a position runs up to
+    # K + 2 * BLOCK_K (the id tiles read ahead), the grid to tiles * splits
+    if k > INT32_MAX - 2 * BLOCK_K or plan["ctas"] > INT32_MAX:
+        raise ValueError(f"K={k}, {plan['ctas']} CTAs: the grouped ANN "
+                         f"kernel takes K <= {INT32_MAX - 2 * BLOCK_K} and "
+                         f"a grid of at most {INT32_MAX} CTAs")
+    return _launch(kernel, codes, scores, lut, nsel, use_lsh, use_rank,
+                   (cand.lists, cand.order, cand.starts), (m, w, k, s),
+                   _plan_args(plan) + (plan["tiles"],
+                                       int(plan.get("instance") == "warp")))
 
 
 @kernel_contract(
@@ -331,7 +442,10 @@ def fused_select_ann(codes: torch.Tensor, scores: torch.Tensor,
     f32, cand_ids (M, K) int32 ids in [0, M] (M marks an invalid slot) ->
     (ids (M, N) int32, top_w (M, N) f32), N = min(num_neighbors, M-1) <=
     TILED_MAX_NEIGHBORS and <= K. Slots with no finite weight get id 0
-    and weight -inf. Bit-equal to `ref.ann_select_ref`."""
+    and weight -inf. Bit-equal to `ref.ann_select_ref`. On the card the
+    grouped entry point runs it, one slot a row (`core.ann.per_row_slots`)
+    on its one-row instance (`ann_plan(one_row_slots=True)`)."""
+    from repro_torch.core.ann import per_row_slots
     m, w = codes.shape
     lut = ref.selection_lut(w, bits, gamma, device=codes.device)
     if codes.device.type in PLAIN_DEVICES:
@@ -345,58 +459,10 @@ def fused_select_ann(codes: torch.Tensor, scores: torch.Tensor,
         raise ValueError("cand_ids must be (M, K) int32 on the codes' "
                          f"device, got {cand_ids.dtype} "
                          f"{tuple(cand_ids.shape)}")
-    if nsel > TILED_MAX_NEIGHBORS or w > TILED_MAX_WORDS or nsel > k:
-        raise ValueError(f"N={nsel}, W={w}, K={k}: the ANN selection kernel "
-                         f"takes N <= {TILED_MAX_NEIGHBORS}, N <= K and "
-                         f"codes of at most {TILED_MAX_WORDS * 32} bits")
-    return _launch(ANN_KERNEL, codes, scores, lut, nsel, use_lsh, use_rank,
-                   (cand_ids,), (m, w, k))
-
-
-GROUPED_KERNEL = CudaKernel(
-    "selection_ann_grouped", "selection.cu", "fused_select_ann_grouped",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_void_p] * 2)
-
-
-def ann_smem_bytes(kw: int, rows: int, nsel: int) -> int:
-    """Dynamic shared memory of one grouped CTA (csrc/selection.cu:
-    layout): `select_smem_bytes` with the grouped list stride, and a
-    ring of three BLOCK_K-id tiles."""
-    return select_smem_bytes(kw, rows, nsel, grouped=True) + 4 * 3 * BLOCK_K
-
-
-def ann_plan(m: int, w: int, n: int, k: int, n_slots: int) -> dict:
-    """The grouped ANN kernel's launch for M clients, W words, N =
-    min(n, M - 1) partners, K candidate positions and S = `n_slots` list
-    rows (`bucket_candidates`), from these shapes alone: `rows` per tile
-    (ROWS_PER_WARP * `warps`: MAX_WARPS, halved while the CTA's shared
-    memory would pass MAX_SHARED_BYTES; warps past a small bucket's
-    clients skip the products and still stage columns, which measured
-    faster on the H100 at M = 10 and 4,096 than CTAs sized to the mean
-    bucket); `tiles` = ceil(M / rows) + S, a bound on sum over slots of
-    ceil(clients / rows) for any bucket layout (tiles past a slot's
-    clients exit); the K positions cut into `splits` ranges of
-    `split_len` (a multiple of 8; as many CTAs of a cluster per tile as
-    bring the tiles the buckets are expected to fill, max(ceil(M / rows),
-    min(S, M)), to two CTAs an SM, up to MAX_SPLITS and at least
-    SPLIT_MIN_COLS positions each). `ctas` is the grid, `smem_bytes` one
-    CTA's dynamic shared memory."""
-    nsel = max(min(n, m - 1), 0)
-    kw = mma_words(w)
-    warps = MAX_WARPS
-    while warps > 1 and ann_smem_bytes(kw, ROWS_PER_WARP * warps,
-                                       nsel) > MAX_SHARED_BYTES:
-        warps //= 2
-    rows = ROWS_PER_WARP * warps
-    tiles = -(-m // rows) + n_slots
-    filled = max(-(-m // rows), min(n_slots, m))
-    most_splits = max(1, min(MAX_SPLITS, -(-k // SPLIT_MIN_COLS)))
-    splits = min(most_splits, -(-2 * FILL_SMS // filled))
-    split_len = -(-(-(-k // splits)) // 8) * 8
-    return {"kw": kw, "warps": warps, "rows": rows, "threads": 32 * warps,
-            "tiles": tiles, "splits": splits, "split_len": split_len,
-            "block_k": BLOCK_K, "smem_bytes": ann_smem_bytes(kw, rows, nsel),
-            "ctas": tiles * splits}
+    plan = ann_plan(m, w, num_neighbors, k, m, one_row_slots=True)
+    return _launch_grouped(ANN_KERNEL, codes, scores, lut,
+                           per_row_slots(cand_ids, m), nsel, use_lsh,
+                           use_rank, plan)
 
 
 def _grouped_args(point: dict):
@@ -446,22 +512,8 @@ def fused_select_ann_grouped(codes: torch.Tensor, scores: torch.Tensor, cand,
         return ref.ann_select_grouped_ref(codes, scores, cand, lut,
                                           num_neighbors=num_neighbors,
                                           use_lsh=use_lsh, use_rank=use_rank)
-    nsel = min(num_neighbors, m - 1)
     s, k = cand.lists.shape if cand.lists.ndim == 2 else (0, 0)
-    for name, t, shape in (("lists", cand.lists, (s, k)),
-                           ("order", cand.order, (m,)),
-                           ("starts", cand.starts, (s + 1,))):
-        if t.dtype != torch.int32 or t.shape != shape or \
-                t.device != codes.device:
-            raise ValueError(f"cand.{name} must be {shape} int32 on the "
-                             f"codes' device, got {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device}")
-    if nsel > TILED_MAX_NEIGHBORS or w > TILED_MAX_WORDS or nsel > k or \
-            s < 1:
-        raise ValueError(f"N={nsel}, W={w}, K={k}, S={s}: the grouped ANN "
-                         f"kernel takes N <= {TILED_MAX_NEIGHBORS}, N <= K "
-                         f"and codes of at most {TILED_MAX_WORDS * 32} bits")
     plan = ann_plan(m, w, num_neighbors, k, s)
-    return _launch(GROUPED_KERNEL, codes, scores, lut, nsel, use_lsh,
-                   use_rank, (cand.lists, cand.order, cand.starts),
-                   (m, w, k, s), _plan_args(plan) + (plan["tiles"],))
+    return _launch_grouped(GROUPED_KERNEL, codes, scores, lut, cand,
+                           min(num_neighbors, m - 1), use_lsh, use_rank,
+                           plan)

@@ -128,7 +128,7 @@ def test_every_exported_symbol_and_cuda_kernel_is_registered(entries):
     exported = {s for cu in kc.CSRC.glob("*.cu")
                 for s in kc.exported_symbols(cu)}
     declared = {s for e in entries for s in (e.kernel.symbol, *e.helpers)}
-    assert exported == declared and len(exported) == 16
+    assert exported == declared and len(exported) == 15
     assert len({id(e.kernel) for e in entries}) == 10
     sites = sum(len(kc.cuda_kernel_lines(p))
                 for p in kc.PORT_ROOT.rglob("*.py"))

@@ -343,6 +343,68 @@ def test_ann_prefix_zero_equals_the_exact_kernel(cuda):
     assert torch.equal(ai, oi) and torch.equal(aw, ow)
 
 
+PER_ROW_CASES = [  # (M, W, K, N)
+    (45, 4, 29, 6),       # M past 32 slots and no power of two; K % 8 != 0
+    (45, 8, 6, 6),        # K = N
+    (300, 3, 70, 20),     # W = 3: word-by-word staging
+    (130, 32, 131, 128),  # the largest N and W; K past two id tiles
+    (200, 8, 1000, 16),   # many id tiles, 8-column steps of sentinels
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,w,k,n", PER_ROW_CASES)
+def test_per_row_ann_kernel_on_arbitrary_lists(cuda, m, w, k, n):
+    """The per-row function (the grouped kernel, one slot a row) on
+    lists no bucket gives (`torch_ann_lists.arbitrary_lists`: repeated
+    ids, the row itself anywhere, scattered sentinels, a row of
+    sentinels only) against `ann_select_ref`, ids and weights bit for
+    bit, under gridded, departed (-inf) and all-zero scores and each
+    Table-3 switch; a second launch gives the same bits, and every
+    launch goes through the per-row handle."""
+    from torch_ann_lists import arbitrary_lists
+    g = _gen(m * k + w)
+    codes = _random_codes(g, m, w, cuda)
+    codes[5:9] = codes[4]
+    ids = torch.from_numpy(arbitrary_lists(m, k, seed=m + k)).to(cuda)
+    lut = ref.selection_lut(w, w * 32, 1.0, device=cuda)
+    grid = torch.rand(m, generator=g, device=cuda).round(decimals=1)
+    for scores in (grid, _depart(grid, 0.3, m), torch.zeros(m, device=cuda)):
+        for flags in ({}, {"use_lsh": False}, {"use_rank": False}):
+            before = (selection.ANN_KERNEL.launches,
+                      selection.GROUPED_KERNEL.launches)
+            call = dict(bits=w * 32, gamma=1.0, num_neighbors=n, **flags)
+            ki, kw = selection.fused_select_ann(codes, scores, ids, **call)
+            ai, aw = selection.fused_select_ann(codes, scores, ids, **call)
+            pi, pw = ref.ann_select_ref(codes, scores, ids, lut,
+                                        num_neighbors=n, block_m=64, **flags)
+            assert torch.equal(ki, pi) and torch.equal(kw, pw), flags
+            assert torch.equal(ai, ki) and torch.equal(aw, kw), flags
+            assert (selection.ANN_KERNEL.launches,
+                    selection.GROUPED_KERNEL.launches) == (before[0] + 2,
+                                                           before[1])
+            assert bool((ki[3] == 0).all()) and bool(kw[3].isinf().all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4097, 46_489])
+def test_per_row_ann_kernel_with_a_slot_per_client(cuda, m):
+    """S = M slots, M no power of two and far past 32: the tile-to-slot
+    search finds every client's slot (the last slot's included), at
+    K = 64, against `ann_select_ref` bit for bit."""
+    from torch_ann_lists import arbitrary_lists
+    g = _gen(m)
+    codes = _random_codes(g, m, 8, cuda)
+    scores = torch.rand(m, generator=g, device=cuda).round(decimals=1)
+    ids = torch.from_numpy(arbitrary_lists(m, 64, seed=m)).to(cuda)
+    ki, kw = selection.fused_select_ann(codes, scores, ids, bits=256,
+                                        gamma=1.0, num_neighbors=16)
+    lut = ref.selection_lut(8, 256, 1.0, device=cuda)
+    pi, pw = ref.ann_select_ref(codes, scores, ids, lut, num_neighbors=16)
+    assert torch.equal(ki, pi) and torch.equal(kw, pw)
+    assert bool(kw[-1].isfinite().any())
+
+
 def _grouped_inputs(kind, m, w, seed):
     """Codes and score sets on the card: random codes with duplicates,
     half the clients on one code (a bucket far past a tile and its cap),
